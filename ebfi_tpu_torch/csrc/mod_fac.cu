@@ -1,25 +1,27 @@
-// Kernels B3 and B2: Modification's kernel-bank prediction fused with the
-// FAC apply, so the per-pixel K*K*C bank never reaches device memory.
+// Kernels B3 and B2 in f32: Modification's kernel-bank prediction fused
+// with the FAC apply, so the per-pixel K*K*C bank never reaches device
+// memory.  (bf16, the serving dtype, runs on the tensor cores in
+// mod_fac_wgmma.cu; this f32 route keeps full f32 products, which the
+// card-versus-CPU f32 checks need.)
 //
 // B3 replaces ebfi_tpu/ops/pallas/mod_fac.py::_kernel:
 //   bank = lrelu_0.01(conv3x3_zero_pad(concat(ev, ff), wk) + bk)    (2C -> K*K*C)
 //   out[b,y,x,c] = sum_t evrep[b, y+ky-p, x+kx-p, c] * bank[b,y,x,t*C + c],  t = ky*K+kx
 // B2 replaces ebfi_tpu/ops/pallas/mod_fac.py::_kernel_shared: the same for
 // N timestamps of one frame (ev at batch B*N, ff at batch B), with the ff
-// half of the bank conv plus bias computed once per frame into a scratch
-// in the input dtype (as the TPU kernel's band scratch rounds it), then
-// per timestamp only the ev half is computed and added.
+// half of the bank conv plus bias computed once per frame into a scratch,
+// then per timestamp only the ev half is computed and added.
 //
 // Bound on the H100: operations.  The bank conv is an implicit GEMM of
 // M = pixels, N = K*K*C = 1600, depth 9*Cin (1152 for B3, 576 per
-// timestamp for B2), hundreds of flops per byte moved.  This first version
-// runs it on the CUDA cores in f32 (tensor-core tiles are later work): a
-// block owns a tile of 2x32 pixels, stages their 3x3 neighbourhood of the
-// conv input once in shared memory (f32, zero outside the image), then for
-// each of the K*K taps computes that tap's C = 64 bank channels for the 64
-// pixels (4 pixels x 4 channels per thread, weights streamed through
-// shared memory 32 rows at a time), applies bias (or the ff scratch) and
-// leaky ReLU in registers and multiply-accumulates the FAC product at once.
+// timestamp for B2), hundreds of flops per byte moved; in f32 it runs on
+// the CUDA cores (67 TFLOP/s): a block owns a tile of 2x32 pixels, stages
+// their 3x3 neighbourhood of the conv input once in shared memory (f32,
+// zero outside the image), then for each of the K*K taps computes that
+// tap's C = 64 bank channels for the 64 pixels (4 pixels x 4 channels per
+// thread, weights streamed through shared memory 32 rows at a time),
+// applies bias (or the ff scratch) and leaky ReLU in registers and
+// multiply-accumulates the FAC product at once.
 // Only the (B, H, W, C) output is written.
 #include <stdint.h>
 
@@ -49,14 +51,14 @@ __host__ constexpr size_t smem_bytes(int cin) {
 // CIN: channels of the bank-conv input (2C for B3, C for B2's halves).
 // src_a holds input channels [0, C), src_b channels [C, 2C) when CIN == 2C.
 // MODE kFused: out = FAC(ev, lrelu(conv + bias))              (B3)
-// MODE kFFHalf: out = conv + bias, the full bank, in T         (B2, once per frame)
+// MODE kFFHalf: out = conv + bias, the full bank               (B2, once per frame)
 // MODE kShared: out = FAC(ev, lrelu(conv + ffbank[b / N]))    (B2, per timestamp)
-template <typename T, int CIN, int MODE>
+template <int CIN, int MODE>
 __global__ void __launch_bounds__(kThreads, 2)
-    mod_fac_kernel(const T* __restrict__ src_a, const T* __restrict__ src_b,
-                   const T* __restrict__ ev, const T* __restrict__ wk,
-                   const float* __restrict__ bias, const T* __restrict__ ffbank,
-                   T* __restrict__ out, int H, int W, int K, int N) {
+    mod_fac_kernel(const float* __restrict__ src_a, const float* __restrict__ src_b,
+                   const float* __restrict__ ev, const float* __restrict__ wk,
+                   const float* __restrict__ bias, const float* __restrict__ ffbank,
+                   float* __restrict__ out, int H, int W, int K, int N) {
   extern __shared__ __align__(16) float smem[];
   constexpr int HS = halo_stride(CIN);
   float* halo = smem;
@@ -78,8 +80,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int xx = x0 + pos % (kTW + 2) - 1;
     float v = 0.f;
     if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-      const T* s = ci < kTC ? src_a : src_b;
-      v = ebfi::to_f32(s[((b * H + yy) * W + xx) * kTC + (ci % kTC)]);
+      const float* s = ci < kTC ? src_a : src_b;
+      v = s[((b * H + yy) * W + xx) * kTC + (ci % kTC)];
     }
     halo[pos * HS + ci] = v;
   }
@@ -115,7 +117,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       __syncthreads();  // halo staged / previous chunk consumed
       for (int i = tid; i < kKC * kTC; i += kThreads) {
         const int r = i / kTC, col = i % kTC;
-        ws[i] = ebfi::to_f32(wk[(long long)(k0 + r) * NB + t * kTC + col]);
+        ws[i] = wk[(long long)(k0 + r) * NB + t * kTC + col];
       }
       __syncthreads();
       const int tap9 = k0 / CIN;  // kKC divides CIN: a chunk stays in one 3x3 tap
@@ -142,12 +144,11 @@ __global__ void __launch_bounds__(kThreads, 2)
       if (MODE == kFFHalf) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          out[pix * NB + t * kTC + c0 + j] =
-              ebfi::from_f32<T>(acc[i][j] + bias[t * kTC + c0 + j]);
+          out[pix * NB + t * kTC + c0 + j] = acc[i][j] + bias[t * kTC + c0 + j];
       } else {
         const int yy = min(max(py[i] + ky - pad, 0), H - 1);
         const int xx = min(max(px[i] + kx - pad, 0), W - 1);
-        const T* e = ev + ((b * H + yy) * W + xx) * kTC + c0;
+        const float* e = ev + ((b * H + yy) * W + xx) * kTC + c0;
         const long long fpix = ((b / N) * H + py[i]) * W + px[i];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -155,9 +156,9 @@ __global__ void __launch_bounds__(kThreads, 2)
           if (MODE == kFused)
             pre = acc[i][j] + bias[t * kTC + c0 + j];
           else
-            pre = acc[i][j] + ebfi::to_f32(ffbank[fpix * NB + t * kTC + c0 + j]);
+            pre = acc[i][j] + ffbank[fpix * NB + t * kTC + c0 + j];
           const float kern = pre >= 0.f ? pre : 0.01f * pre;
-          oacc[i][j] = fmaf(ebfi::to_f32(e[j]), kern, oacc[i][j]);
+          oacc[i][j] = fmaf(e[j], kern, oacc[i][j]);
         }
       }
     }
@@ -169,26 +170,27 @@ __global__ void __launch_bounds__(kThreads, 2)
       if (!valid[i]) continue;
       const long long pix = (b * H + py[i]) * W + px[i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) out[pix * kTC + c0 + j] = ebfi::from_f32<T>(oacc[i][j]);
+      for (int j = 0; j < 4; ++j) out[pix * kTC + c0 + j] = oacc[i][j];
     }
   }
 }
 
-template <typename T, int CIN, int MODE>
+template <int CIN, int MODE>
 cudaError_t launch(int nbatch, int H, int W, int K, int N, const void* src_a, const void* src_b,
                    const void* ev, const void* wk, const void* bias, const void* ffbank,
                    void* out, cudaStream_t stream) {
   if (nbatch > 65535) return cudaErrorInvalidConfiguration;
-  auto kern = mod_fac_kernel<T, CIN, MODE>;
+  auto kern = mod_fac_kernel<CIN, MODE>;
   const size_t smem = smem_bytes(CIN);
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, nbatch);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(src_a), static_cast<const T*>(src_b), static_cast<const T*>(ev),
-      static_cast<const T*>(wk), static_cast<const float*>(bias),
-      static_cast<const T*>(ffbank), static_cast<T*>(out), H, W, K, N);
+      static_cast<const float*>(src_a), static_cast<const float*>(src_b),
+      static_cast<const float*>(ev), static_cast<const float*>(wk),
+      static_cast<const float*>(bias), static_cast<const float*>(ffbank),
+      static_cast<float*>(out), H, W, K, N);
   return cudaGetLastError();
 }
 
@@ -196,49 +198,38 @@ bool bad_shape(int B, int H, int W, int C, int K) {
   return B <= 0 || H <= 0 || W <= 0 || C != kTC || K <= 0 || K % 2 == 0;
 }
 
-template <typename T>
 cudaError_t fused(const void* ev, const void* ff, const void* wk, const void* bias, void* out,
                   int B, int H, int W, int K, cudaStream_t s) {
-  return launch<T, 2 * kTC, kFused>(B, H, W, K, 1, ev, ff, ev, wk, bias, nullptr, out, s);
+  return launch<2 * kTC, kFused>(B, H, W, K, 1, ev, ff, ev, wk, bias, nullptr, out, s);
 }
 
-template <typename T>
 cudaError_t shared(const void* ev, const void* ff, const void* wke, const void* wkf,
                    const void* bias, void* scratch, void* out, int B, int N, int H, int W,
                    int K, cudaStream_t s) {
   cudaError_t e =
-      launch<T, kTC, kFFHalf>(B, H, W, K, 1, ff, ff, nullptr, wkf, bias, nullptr, scratch, s);
+      launch<kTC, kFFHalf>(B, H, W, K, 1, ff, ff, nullptr, wkf, bias, nullptr, scratch, s);
   if (e != cudaSuccess) return e;
-  return launch<T, kTC, kShared>(B * N, H, W, K, N, ev, ev, ev, wke, nullptr, scratch, out, s);
+  return launch<kTC, kShared>(B * N, H, W, K, N, ev, ev, ev, wke, nullptr, scratch, out, s);
 }
 
 }  // namespace
 
-// B3.  ev, ff, out: (B, H, W, C); wk: (9*2C, K*K*C) rows (dy, dx, cin) of the
+// B3 in f32.  ev, ff, out: (B, H, W, C); wk: (9*2C, K*K*C) rows (dy, dx, cin) of the
 // HWIO weight; bias: (K*K*C,) f32.
 extern "C" int ebfi_mod_fac_fused(const void* ev, const void* ff, const void* wk,
                                   const void* bias, void* out, int B, int H, int W, int C,
-                                  int K, int dtype, void* stream) {
+                                  int K, void* stream) {
   if (bad_shape(B, H, W, C, K)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ebfi::kF32) return (int)fused<float>(ev, ff, wk, bias, out, B, H, W, K, s);
-  if (dtype == ebfi::kBF16)
-    return (int)fused<__nv_bfloat16>(ev, ff, wk, bias, out, B, H, W, K, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)fused(ev, ff, wk, bias, out, B, H, W, K, static_cast<cudaStream_t>(stream));
 }
 
-// B2.  ev, out: (B*N, H, W, C); ff: (B, H, W, C); wke, wkf: (9*C, K*K*C) the
+// B2 in f32.  ev, out: (B*N, H, W, C); ff: (B, H, W, C); wke, wkf: (9*C, K*K*C) the
 // ev and ff input halves of the HWIO weight; bias: (K*K*C,) f32; scratch:
-// (B, H, W, K*K*C) in the input dtype.
+// (B, H, W, K*K*C) f32.
 extern "C" int ebfi_mod_fac_shared(const void* ev, const void* ff, const void* wke,
                                    const void* wkf, const void* bias, void* scratch, void* out,
-                                   int B, int N, int H, int W, int C, int K, int dtype,
-                                   void* stream) {
+                                   int B, int N, int H, int W, int C, int K, void* stream) {
   if (bad_shape(B, H, W, C, K) || N <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ebfi::kF32)
-    return (int)shared<float>(ev, ff, wke, wkf, bias, scratch, out, B, N, H, W, K, s);
-  if (dtype == ebfi::kBF16)
-    return (int)shared<__nv_bfloat16>(ev, ff, wke, wkf, bias, scratch, out, B, N, H, W, K, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)shared(ev, ff, wke, wkf, bias, scratch, out, B, N, H, W, K,
+                     static_cast<cudaStream_t>(stream));
 }

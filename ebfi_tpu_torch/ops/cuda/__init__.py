@@ -2,7 +2,8 @@
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 PyTorch version, kept in the same module, for CPU tensors.  Each counts its
-kernel launches in a plain integer attribute ``launches``.
+kernel launches in a plain integer attribute ``launches``; B2 and B3, which
+route by dtype, also count per route in ``launches_by_route``.
 """
 from .fac import kernel_conv2d_cuda, fac_plain
 from .mod_fac import (
@@ -22,10 +23,21 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        for route in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[route] = 0
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def route_counts() -> dict:
+    """Launches per route of the kernels that route by dtype."""
+    return {
+        name: dict(fn.launches_by_route)
+        for name, fn in KERNELS.items()
+        if hasattr(fn, "launches_by_route")
+    }
 
 
 __all__ = [
@@ -38,4 +50,5 @@ __all__ = [
     "mod_fac_shared_plain",
     "reset_launch_counts",
     "launch_counts",
+    "route_counts",
 ]

@@ -33,8 +33,10 @@ _I = ctypes.c_int
 # c_void_p, so 64-bit addresses are not cut to 32 bits)
 SIGNATURES = {
     "ebfi_fac_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "ebfi_mod_fac_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "ebfi_mod_fac_shared": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ebfi_mod_fac_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ebfi_mod_fac_shared": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ebfi_mod_fac_fused_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ebfi_mod_fac_shared_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -2,20 +2,25 @@
 
 B3 replaces ``ebfi_tpu/ops/pallas/mod_fac.py::_kernel`` (public
 ``modification_fac_fused``); B2 replaces ``::_kernel_shared`` (public
-``modification_fac_fused_shared``, unpacked output).  CUDA source:
-``csrc/mod_fac.cu``.
+``modification_fac_fused_shared``, unpacked output).
 
 Bound on the H100: operations.  The 3x3 bank conv (depth 9*2C = 1152 into
-K*K*C = 1600 channels) is hundreds of flops per byte.  The kernels keep
-the TPU kernels' one idea, that the bank never reaches device memory: a
-block computes each tap's C bank channels for a 2x32-pixel tile from a
-shared-memory copy of the tile's neighbourhood and folds them into the FAC
-sum in registers.  B2 computes the frame-feature half of the bank conv plus
-bias once per frame into a scratch in the input dtype (the TPU kernel's
-band scratch rounds it the same way) rather than once per timestamp, which
-halves its work at N = 16 for 1/16 of a bank of extra traffic per
-timestamp.  The products run on the CUDA cores in f32; tensor-core tiles
-are later work.
+K*K*C = 1600 channels) is hundreds of flops per byte.  Both kernels keep
+the TPU kernels' one idea, that the bank never reaches device memory, and
+route by dtype:
+
+- bf16 (serving): ``csrc/mod_fac_wgmma.cu``, the bank conv as an implicit
+  GEMM on the tensor cores (wgmma), weights packed here by
+  :func:`pack_bank_weight` into swizzled 64x64 tiles and streamed through a
+  shared-memory ring, epilogue (bias or ff half, leaky ReLU, FAC) in
+  registers.  B2 computes the ff half plus bias once per frame into a
+  tap-major bf16 scratch (the TPU kernel's band scratch rounds it the same
+  way), then two timestamps per block share every weight tile.
+- f32: ``csrc/mod_fac.cu``, the same fusion on the CUDA cores in f32 (the
+  card-versus-CPU f32 checks need f32 products; TF32 would not keep them).
+
+A bf16 CUDA call the tensor-core kernel cannot take (C != 64, K > 5,
+data not 16-byte aligned) raises; nothing falls back to another route.
 """
 from __future__ import annotations
 
@@ -23,10 +28,12 @@ import torch
 import torch.nn.functional as F
 
 from ..kernel_conv2d import kernel_conv2d
-from ._common import DTYPE_CODES, check_inputs, stream_handle
+from ._common import check_inputs, stream_handle
 from .build import check, load_library
 
 KERNEL_CHANNELS = 64  # the CUDA kernels' channel tile: C must equal it
+WGMMA_MAX_K = 5  # the bf16 kernel's halo border (2) covers a 5x5 FAC at most
+TILE = 64  # packed weight tiles are TILE x TILE (output x input channels)
 
 
 def _conv3x3(x: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
@@ -54,6 +61,37 @@ def mod_fac_shared_plain(ev, ff, wk, bk, kernel_size: int = 5) -> torch.Tensor:
     return kernel_conv2d(ev, bank, kernel_size, layout="tap_major")
 
 
+def pack_bank_weight(wk: torch.Tensor) -> torch.Tensor:
+    """Pack an HWIO bank-conv weight (3, 3, Cin, K*K*64), Cin a multiple of
+    64, into the bf16 kernel's tiles: (K*K, 9*Cin/64, 64, 64), tap t of the
+    bank major, then chunk kc = half*9 + (dy*3 + dx) for input channels
+    [64*half, 64*half + 64) at 3x3 offset (dy, dx).  Tile element (n, k)
+    (bank channel n of the tap, input channel k of the chunk) sits at flat
+    offset n*64 + ((k // 8) ^ (n % 8))*8 + k % 8: rows of 64 inputs (128
+    bytes in bf16) whose 16-byte chunks are XOR-swizzled by the row, the
+    128-byte swizzle wgmma reads for a K-major B operand."""
+    cin, kkc = wk.shape[2], wk.shape[3]
+    nh, kk = cin // TILE, kkc // TILE
+    w = wk.reshape(9, nh, TILE, kk, TILE)  # (tap9, half, k, t, n)
+    w = w.permute(3, 1, 0, 4, 2).reshape(kk, nh * 9, TILE, TILE // 8, 8)  # (t, kc, n, k/8, k%8)
+    return _swizzle(w).reshape(kk, nh * 9, TILE, TILE)
+
+
+def unpack_bank_weight(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_bank_weight`: back to HWIO (3, 3, Cin, K*K*64)."""
+    kk, nkc = packed.shape[:2]
+    nh = nkc // 9
+    w = _swizzle(packed.reshape(kk, nkc, TILE, TILE // 8, 8)).reshape(kk, nh, 9, TILE, TILE)
+    return w.permute(2, 1, 4, 0, 3).reshape(3, 3, nh * TILE, kk * TILE)
+
+
+def _swizzle(w):
+    """Chunk s of row n takes chunk s ^ (n % 8): its own inverse."""
+    n = torch.arange(TILE, device=w.device)[:, None]
+    idx = (torch.arange(TILE // 8, device=w.device)[None, :] ^ (n % 8))[:, :, None]
+    return torch.gather(w, -2, idx.expand(*w.shape[:-3], TILE, TILE // 8, 8))
+
+
 def _check_weights(what, C, K, wk, bk):
     if C != KERNEL_CHANNELS:
         raise ValueError(f"{what}: the CUDA kernel takes C={KERNEL_CHANNELS} channels, got {C}")
@@ -65,30 +103,63 @@ def _check_weights(what, C, K, wk, bk):
         )
 
 
+def _route(what, dtype, K) -> str:
+    """The kernel route of a CUDA call whose weights passed
+    :func:`_check_weights`: the tensor-core kernel for bf16, the CUDA-core
+    kernel for f32.  Raises for what neither takes."""
+    if dtype == torch.bfloat16:
+        if K > WGMMA_MAX_K:
+            raise ValueError(
+                f"{what}: the bf16 kernel takes kernel_size <= {WGMMA_MAX_K}, got {K}"
+            )
+        return "wgmma_bf16"
+    if dtype == torch.float32:
+        return "simt_f32"
+    raise TypeError(f"{what}: dtype {dtype} not supported (float32 or bfloat16)")
+
+
+def _count(fn, route):
+    fn.launches += 1
+    fn.launches_by_route[route] += 1
+
+
 def modification_fac_fused(ev, ff, wk, bk, kernel_size: int = 5) -> torch.Tensor:
     """lrelu(conv3x3(concat(ev, ff)) + bk) bank, FAC-applied to ev, with the
     bank kept on chip.  ev, ff (B, H, W, C); wk (3, 3, 2C, K*K*C) HWIO with
-    tap-major output channels; bk (K*K*C,).  CUDA tensors launch B3; CPU
-    tensors run :func:`mod_fac_plain`."""
+    tap-major output channels; bk (K*K*C,).  CUDA tensors launch B3 (the
+    tensor-core kernel in bf16, the CUDA-core kernel in f32); CPU tensors
+    run :func:`mod_fac_plain`."""
     if ev.device.type == "cpu":
         return mod_fac_plain(ev, ff, wk, bk, kernel_size)
+    what = "modification_fac_fused"
     K = kernel_size
     B, H, W, C = ev.shape
-    _check_weights("modification_fac_fused", C, K, wk, bk)
+    _check_weights(what, C, K, wk, bk)
+    route = _route(what, ev.dtype, K)
     if tuple(ff.shape) != tuple(ev.shape):
         raise ValueError(f"ff shape {tuple(ff.shape)} != ev shape {tuple(ev.shape)}")
-    w2 = wk.to(ev.dtype).reshape(9 * 2 * C, K * K * C).contiguous()
     b32 = bk.float().contiguous()
-    check_inputs("modification_fac_fused", {"ev": ev, "ff": ff, "wk": w2}, ev.dtype)
-    check_inputs("modification_fac_fused", {"bk": b32}, torch.float32)
     out = torch.empty_like(ev)
     lib = load_library()
-    err = lib.ebfi_mod_fac_fused(
-        ev.data_ptr(), ff.data_ptr(), w2.data_ptr(), b32.data_ptr(), out.data_ptr(),
-        B, H, W, C, K, DTYPE_CODES[ev.dtype], stream_handle(ev.device),
-    )
-    check(lib, err, "ebfi_mod_fac_fused")
-    modification_fac_fused.launches += 1
+    if route == "wgmma_bf16":
+        wp = pack_bank_weight(wk.to(ev.dtype))
+        check_inputs(what, {"ev": ev, "ff": ff, "wk": wp}, ev.dtype)
+        check_inputs(what, {"bk": b32}, torch.float32)
+        err = lib.ebfi_mod_fac_fused_wgmma(
+            ev.data_ptr(), ff.data_ptr(), wp.data_ptr(), b32.data_ptr(), out.data_ptr(),
+            B, H, W, C, K, stream_handle(ev.device),
+        )
+        check(lib, err, "ebfi_mod_fac_fused_wgmma")
+    else:
+        w2 = wk.to(ev.dtype).reshape(9 * 2 * C, K * K * C).contiguous()
+        check_inputs(what, {"ev": ev, "ff": ff, "wk": w2}, ev.dtype)
+        check_inputs(what, {"bk": b32}, torch.float32)
+        err = lib.ebfi_mod_fac_fused(
+            ev.data_ptr(), ff.data_ptr(), w2.data_ptr(), b32.data_ptr(), out.data_ptr(),
+            B, H, W, C, K, stream_handle(ev.device),
+        )
+        check(lib, err, "ebfi_mod_fac_fused")
+    _count(modification_fac_fused, route)
     return out
 
 
@@ -96,35 +167,50 @@ def modification_fac_fused_shared(ev, ff, wk, bk, kernel_size: int = 5) -> torch
     """The fused bank + FAC for N timestamps sharing one frame: ev
     (B*N, H, W, C) b-major, ff (B, H, W, C).  The ff half of the bank conv
     plus bias is computed once per frame and rounded to the input dtype.
-    CUDA tensors launch B2; CPU tensors run :func:`mod_fac_shared_plain`."""
+    CUDA tensors launch B2 (tensor cores in bf16, CUDA cores in f32); CPU
+    tensors run :func:`mod_fac_shared_plain`."""
     if ev.device.type == "cpu":
         return mod_fac_shared_plain(ev, ff, wk, bk, kernel_size)
+    what = "modification_fac_fused_shared"
     K = kernel_size
     BN, H, W, C = ev.shape
     B = ff.shape[0]
-    _check_weights("modification_fac_fused_shared", C, K, wk, bk)
+    _check_weights(what, C, K, wk, bk)
+    route = _route(what, ev.dtype, K)
     if tuple(ff.shape[1:]) != (H, W, C) or B == 0 or BN % B:
         raise ValueError(f"ff shape {tuple(ff.shape)} does not divide ev shape {tuple(ev.shape)}")
     N = BN // B
-    wke = wk[:, :, :C, :].to(ev.dtype).reshape(9 * C, K * K * C).contiguous()
-    wkf = wk[:, :, C:, :].to(ev.dtype).reshape(9 * C, K * K * C).contiguous()
     b32 = bk.float().contiguous()
-    check_inputs(
-        "modification_fac_fused_shared", {"ev": ev, "ff": ff, "wke": wke, "wkf": wkf}, ev.dtype
-    )
-    check_inputs("modification_fac_fused_shared", {"bk": b32}, torch.float32)
-    scratch = torch.empty((B, H, W, K * K * C), dtype=ev.dtype, device=ev.device)
     out = torch.empty_like(ev)
     lib = load_library()
-    err = lib.ebfi_mod_fac_shared(
-        ev.data_ptr(), ff.data_ptr(), wke.data_ptr(), wkf.data_ptr(), b32.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), B, N, H, W, C, K,
-        DTYPE_CODES[ev.dtype], stream_handle(ev.device),
-    )
-    check(lib, err, "ebfi_mod_fac_shared")
-    modification_fac_fused_shared.launches += 1
+    if route == "wgmma_bf16":
+        wpe = pack_bank_weight(wk[:, :, :C, :].to(ev.dtype))
+        wpf = pack_bank_weight(wk[:, :, C:, :].to(ev.dtype))
+        # the ff half plus bias, tap-major so a tap's slice of a row is contiguous
+        scratch = torch.empty((B, K * K, H, W, C), dtype=ev.dtype, device=ev.device)
+        tensors = {"ev": ev, "ff": ff, "wke": wpe, "wkf": wpf}
+        check_inputs(what, tensors, ev.dtype)
+        check_inputs(what, {"bk": b32}, torch.float32)
+        err = lib.ebfi_mod_fac_shared_wgmma(
+            ev.data_ptr(), ff.data_ptr(), wpe.data_ptr(), wpf.data_ptr(), b32.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), B, N, H, W, C, K, stream_handle(ev.device),
+        )
+        check(lib, err, "ebfi_mod_fac_shared_wgmma")
+    else:
+        wke = wk[:, :, :C, :].to(ev.dtype).reshape(9 * C, K * K * C).contiguous()
+        wkf = wk[:, :, C:, :].to(ev.dtype).reshape(9 * C, K * K * C).contiguous()
+        check_inputs(what, {"ev": ev, "ff": ff, "wke": wke, "wkf": wkf}, ev.dtype)
+        check_inputs(what, {"bk": b32}, torch.float32)
+        scratch = torch.empty((B, H, W, K * K * C), dtype=ev.dtype, device=ev.device)
+        err = lib.ebfi_mod_fac_shared(
+            ev.data_ptr(), ff.data_ptr(), wke.data_ptr(), wkf.data_ptr(), b32.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), B, N, H, W, C, K, stream_handle(ev.device),
+        )
+        check(lib, err, "ebfi_mod_fac_shared")
+    _count(modification_fac_fused_shared, route)
     return out
 
 
-modification_fac_fused.launches = 0
-modification_fac_fused_shared.launches = 0
+for _fn in (modification_fac_fused, modification_fac_fused_shared):
+    _fn.launches = 0
+    _fn.launches_by_route = {"wgmma_bf16": 0, "simt_f32": 0}

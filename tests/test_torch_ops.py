@@ -181,9 +181,10 @@ def test_library_name_hashes_the_sources():
     assert path.parent == build.BUILD_DIR and path.name.startswith("libebfi_kernels_")
     assert path == build.library_path()
     names = {p.name for p in build.CSRC_DIR.glob("*.cu")}
-    assert names == {"fac.cu", "mod_fac.cu"}
+    assert names == {"fac.cu", "mod_fac.cu", "mod_fac_wgmma.cu"}
     assert set(build.SIGNATURES) == {
-        "ebfi_fac_forward", "ebfi_mod_fac_fused", "ebfi_mod_fac_shared"
+        "ebfi_fac_forward", "ebfi_mod_fac_fused", "ebfi_mod_fac_shared",
+        "ebfi_mod_fac_fused_wgmma", "ebfi_mod_fac_shared_wgmma",
     }
 
 
