@@ -10,7 +10,7 @@ seconds elapsed:
 1. watchdog, card identity and precision settings;
 2. build the CUDA kernels (cached by a hash of their sources);
 3. every kernel against its plain PyTorch version on the card, f32 and
-   bf16 (B2 and B3 also at a ragged shape), then timed at the serving
+   bf16 (B2, B2p and B3 also at a ragged shape), then timed at the serving
    path's shapes beside its bound, the plain version's time and, for B2
    and B3, cuDNN's bf16 time for their bank conv alone (a yardstick: the
    port never calls it);
@@ -22,7 +22,15 @@ seconds elapsed:
    taken the bf16 tensor-core route.  Then a profile of one steady
    request of (a): the top device kernels and their share of it.  Then
    correctness: hoisted against unhoisted at 720p in bf16, and the card
-   against the CPU on a small input in f32.
+   against the CPU on a small input in f32;
+5. the inference CLI on the card: (a) ``ebfi_tpu_torch.infer.cli.main``
+   serves a synthetic 720x1280 clip (2 blurry frames x 16 timestamps) in
+   bf16 with the shipped model from a port checkpoint, through B2 alone;
+   its restored frames are held against the engine called directly, and
+   the host and device time of each blurry frame is printed; (c) a model
+   with FrameBasech 8 in bf16 takes the unfused path (cuDNN bank conv and
+   B1), card against CPU; (b) ``python -m ebfi_tpu_torch.infer`` in f32 on a
+   64x96 clip, on the card and with ``--device cpu``, outputs compared.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -32,9 +40,14 @@ result.
 from __future__ import annotations
 
 import faulthandler
+import functools
 import json
+import os
+import random
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -131,6 +144,15 @@ def kernel_cases(torch, kern):
             plain=kern.mod_fac_shared_plain, args=mod_args, check=(1, 4), main=(1, N, "bfloat16"),
             ragged=(2, 3), shared=True,
         ),
+        # B2 with the rows2-packed store (PACKED=True): H must be even
+        "B2p_mod_fac_shared_packed": dict(
+            replaces="ebfi_tpu/ops/pallas/mod_fac.py:148 _kernel_shared (PACKED=True)",
+            source="ebfi_tpu_torch/csrc/mod_fac_wgmma.cu",
+            fn=functools.partial(kern.modification_fac_fused_shared, packed_rows2=True),
+            plain=functools.partial(kern.mod_fac_shared_plain, packed_rows2=True),
+            args=mod_args, check=(1, 4), main=(1, N, "bfloat16"), ragged=(2, 3),
+            ragged_hw=(38, 70), shared=True, no_cudnn=True,
+        ),
     }
 
 
@@ -202,7 +224,7 @@ def phase_kernels(torch, kern):
     for name, cs in cases.items():
         shapes = [(*cs["check"], hc, wc)]
         if "ragged" in cs:  # neither H, W nor N a multiple of the tensor-core tiles
-            shapes.append((*cs["ragged"], 37, 70))
+            shapes.append((*cs["ragged"], *cs.get("ragged_hw", (37, 70))))
         for B, n, h, w in shapes:
             for dt in (torch.float32, torch.bfloat16):
                 args = cs["args"](B, h, w, dt, n)
@@ -220,7 +242,8 @@ def phase_kernels(torch, kern):
         with torch.inference_mode():
             ms = cuda_ms(lambda: cs["fn"](*args), reps=5 if name == "B1_fac" else 3)
             plain_ms = cuda_ms(lambda: cs["plain"](*args), reps=2)
-            cudnn_ms = None if name == "B1_fac" else bank_conv_cudnn_ms(torch, args, cs["shared"])
+            cudnn_ms = (None if name == "B1_fac" or cs.get("no_cudnn")
+                        else bank_conv_cudnn_ms(torch, args, cs["shared"]))
         nbytes, flops = work(name, B, n, hm, wm, dname)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dname] * 1e3
         results[name] = dict(
@@ -331,7 +354,9 @@ def phase_engine(torch, kern):
         lambda f, e, ts: bf16.interpolate(f, e, ts, outputs="final")[1], requests, N,
         route="wgmma_bf16",
     )
-    launches["B2_mod_fac_shared"] = counts["mod_fac_shared"]
+    packed = kern.modification_fac_fused_shared.launches_packed
+    launches["B2_mod_fac_shared"] = counts["mod_fac_shared"] - packed
+    launches["B2p_mod_fac_shared_packed"] = packed  # the engine has no rows2 consumer
     routes = {"B2_mod_fac_shared": routes_a["mod_fac_shared"]}
     breakdown(torch, "(a)", lambda: bf16.interpolate(*requests[-1], outputs="final")[1])
     _, counts, routes_b = serve(
@@ -380,6 +405,201 @@ def phase_engine(torch, kern):
         if not ok:
             raise AssertionError("the card and the CPU disagree")
     return launches, routes
+
+
+# ---------------------------------------------------------------------- CLI
+
+CLI_FLAGS = [  # scripts/infer.sh's synthetic-data flags at the stored resolution
+    "--scale", "1", "--ori_scale", "ori", "--time_bins", "16",
+    "--num_frame_per_period", "16", "--num_frame_per_blurry", "3",
+    "--num_period_per_seq", "2", "--sliding_window_seq", "2",
+    "--num_period_per_load", "1", "--sliding_window_load", "1",
+    "--exposure_method", "Fixed", "--noise_enabled",
+]
+CLIP_FRAMES = 33  # 2 periods of 16 frames: 2 blurry frames x 16 timestamps
+SMALL_CFG = {  # FrameBasech 8: Modification cannot take the fused kernels
+    "name": "EVFIAutoEx",
+    "args": {"FrameBasech": 8, "EventBasech": 8, "InterCH": 8, "TB": 16, "step": 2,
+             "channels": [4, 6, 8, 12]},
+}
+
+
+def run_cli(cli, kern, torch, ckpt, clip, out, extra=()):
+    """cli.main in this process with launch counts zeroed just before and
+    read just after; returns (summary, wall s, launches, routes)."""
+    datalist = out + ".txt"
+    with open(datalist, "w") as f:
+        f.write(clip + "\n")
+    torch.cuda.synchronize()
+    kern.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = cli.main(["--model_path", ckpt, "--data_list", datalist, "--output_path", out,
+                        *CLI_FLAGS, *extra])
+    wall = time.perf_counter() - t0
+    return summary, wall, kern.launch_counts(), kern.route_counts()
+
+
+def restored_pngs(out, clip):
+    d = os.path.join(out, os.path.basename(clip), "img", "restored_frame")
+    return {n: os.path.join(d, n) for n in sorted(os.listdir(d))}
+
+
+def compare_outputs(label, read_png, a, b, max_level, frac_over_1, psnr_tol):
+    """Restored PNGs of two CLI runs (paths by name) and their mean PSNRs."""
+    (pa, ma), (pb, mb) = a, b
+    if sorted(pa) != sorted(pb) or not pa:
+        raise AssertionError(f"{label}: restored frames differ in names")
+    worst, over = 0, 0.0
+    for n in pa:
+        d = np.abs(read_png(pa[n]).astype(int) - read_png(pb[n]).astype(int))
+        worst, over = max(worst, int(d.max())), max(over, float((d > 1).mean()))
+    dpsnr = abs(ma["psnr"] - mb["psnr"])
+    ok = worst <= max_level and over <= frac_over_1 and dpsnr <= psnr_tol
+    log(f"check {label}: {len(pa)} restored frames, max level diff {worst} (tol {max_level}), "
+        f"largest share of pixels off by > 1 level {over:.4f} (tol {frac_over_1}); PSNR "
+        f"{ma['psnr']:.4f} vs {mb['psnr']:.4f} dB, diff {dpsnr:.4f} (tol {psnr_tol}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: outputs disagree")
+
+
+def read_means(path):
+    """The 'mean results for the whole data' section of a result file the
+    CLI wrote (its own YAML writer: one '"key": value' line per metric)."""
+    means, inside = {}, False
+    with open(path) as f:
+        for line in f:
+            if not line.startswith(" "):
+                inside = line.strip() == '"mean results for the whole data":'
+            elif inside:
+                key, value = line.strip().split(": ")
+                means[json.loads(key)] = float(value.replace(".nan", "nan").replace(".inf", "inf"))
+    return means
+
+
+def phase_cli(torch, kern):
+    from ebfi_tpu_torch.data.dataloader import EBFIDataLoader
+    from ebfi_tpu_torch.data.synth import write_clip_npz
+    from ebfi_tpu_torch.infer import InferenceEngine, cli
+    from ebfi_tpu_torch.models import build_model, init_weights
+    from ebfi_tpu_torch.utils.checkpoint import save_checkpoint
+    from ebfi_tpu_torch.utils.vis import read_png
+
+    tmp = tempfile.mkdtemp(prefix="ebfi_chip_smoke_")
+    try:
+        # ---- (a) the serving run: 720p, bf16, the shipped model
+        clip = os.path.join(tmp, "clip720.npz")
+        t0 = time.perf_counter()
+        n_events = write_clip_npz(clip, num_frames=CLIP_FRAMES, H=H, W=W, seed=SEED)
+        log(f"cli (a): wrote a {CLIP_FRAMES}-frame {H}x{W} synthetic clip, {n_events} events, "
+            f"in {time.perf_counter() - t0:.1f} s")
+        model = init_weights(build_model(MODEL_CFG), SEED)
+        ckpt = os.path.join(tmp, "model.pt")
+        save_checkpoint(ckpt, model, {"model": MODEL_CFG})
+        out = os.path.join(tmp, "out720")
+        torch.cuda.reset_peak_memory_stats()
+        summary, wall, counts, routes = run_cli(cli, kern, torch, ckpt, clip, out,
+                                                ["--precision", "bf16"])
+        stats = summary["timings"]
+        frames = restored_pngs(out, clip)
+        n_blurry = len(stats)
+        means = summary["means"]
+        log(f"cli (a): {n_blurry} blurry frames, {len(frames)} restored frames in {wall:.2f} s "
+            f"wall, {len(frames) / wall:.2f} restored frames/s end to end; launches {counts}; "
+            f"routes {routes}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; means {means}")
+        for i, st in enumerate(stats):
+            log(f"  blurry frame {i}: host fetch {st['fetch_ms']:.1f} ms, device "
+                f"{st['device_ms']:.1f} ms, host waiting for the result {st['sync_ms']:.1f} ms, "
+                f"emit {st['emit_ms']:.1f} ms (of which MSE/PSNR/SSIM {st['metrics_ms']:.1f} ms, "
+                f"the rest PNG submits), CLI wall {st['wall_ms']:.1f} ms")
+        log(f"  after the last frame: {1e3 * wall - sum(st['wall_ms'] for st in stats):.1f} ms "
+            "(the PNG writes draining, the result files, and the set-up before the first "
+            "fetch: checkpoint load, engine build)")
+        ok = (n_blurry == 2 and len(frames) == N * n_blurry
+              and counts == {"fac": 0, "mod_fac": 0, "mod_fac_shared": n_blurry}
+              and routes["mod_fac_shared"] == {"wgmma_bf16": n_blurry, "simt_f32": 0}
+              and kern.modification_fac_fused_shared.launches_packed == 0
+              and all(np.isfinite(v) for v in means.values())
+              and read_means(os.path.join(out, "inference_all.yml")) == means)
+        log(f"check cli (a): B2 once per blurry frame on wgmma_bf16 alone, no B1 or B3, "
+            f"{N * n_blurry} restored frames, finite metrics in inference_all.yml "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("cli (a): the serving run did not go as expected")
+
+        # the same window through the engine, called directly
+        random.seed(123)
+        np.random.seed(123)
+        cfg = cli.apply_flag_overrides(cli.default_dataloader_config(), cli.get_flags(
+            ["--output_path", out, *CLI_FLAGS]))
+        (window,) = list(EBFIDataLoader(clip, cfg["dataset"]))
+        engine = InferenceEngine(model, precision="bf16")
+        worst, iF = 0, -1
+        for l in range(window["blurry"].shape[1]):
+            finals = engine.interpolate(
+                window["blurry"][:, l, 0], window["events"][:, l],
+                window["relative_ts"][:, l, 0], window["exposure"][:, l, 0], outputs="final",
+            )[1].cpu().numpy()
+            for i in range(finals.shape[0]):
+                iF += 1
+                want = (np.clip(finals[i, 0], 0, 1) * 255).astype(np.uint8)
+                got = read_png(frames[f"{iF:09d}_{l}.png"])
+                worst = max(worst, int(np.abs(got.astype(int) - want.astype(int)).max()))
+        ok = worst <= 1 and iF + 1 == len(frames)
+        log(f"check cli (a) against InferenceEngine.interpolate on the same loader output: "
+            f"{iF + 1} frames, max level diff {worst} (tol 1) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("cli (a): the CLI's frames differ from the engine's")
+        del engine, window
+        shutil.rmtree(out)
+        os.remove(clip)
+        torch.cuda.empty_cache()
+
+        # ---- (c) FrameBasech 8 in bf16: the unfused path (C1), card against CPU
+        small = os.path.join(tmp, "clip64x96.npz")
+        write_clip_npz(small, num_frames=CLIP_FRAMES, H=64, W=96, seed=SEED + 1)
+        ckpt8 = os.path.join(tmp, "model8.pt")
+        save_checkpoint(ckpt8, init_weights(build_model(SMALL_CFG), SEED), {"model": SMALL_CFG})
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            o = os.path.join(tmp, f"out8_{dev}")
+            summary, wall, counts, routes = run_cli(
+                cli, kern, torch, ckpt8, small, o, ["--precision", "bf16", "--device", dev])
+            runs[dev] = (restored_pngs(o, small), summary["means"])
+            if dev == "cuda":
+                ok = counts["fac"] > 0 and counts["mod_fac"] == counts["mod_fac_shared"] == 0
+                log(f"check cli (c) FrameBasech 8 bf16 on the card: launches {counts} (B1 "
+                    f"only: the fused kernels take C = 64) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("cli (c): a FrameBasech-8 model took a fused kernel")
+        # bf16 rounds at other places on the card (cuDNN) and the CPU
+        compare_outputs("cli (c) card vs CPU, bf16, 64x96", read_png, runs["cuda"], runs["cpu"],
+                        255, 0.02, 0.1)
+
+        # ---- (b) the real entry point in f32, on the card and on the CPU
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            o = os.path.join(tmp, f"outm_{dev}")
+            datalist = o + ".txt"
+            with open(datalist, "w") as f:
+                f.write(small + "\n")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "ebfi_tpu_torch.infer", "--model_path", ckpt,
+                 "--data_list", datalist, "--output_path", o, *CLI_FLAGS,
+                 "--precision", "f32", *(["--device", "cpu"] if dev == "cpu" else [])],
+                capture_output=True, text=True, timeout=300,
+            )
+            log(f"cli (b) python -m ebfi_tpu_torch.infer --precision f32 on {dev}: exit "
+                f"{proc.returncode} in {time.perf_counter() - t0:.1f} s")
+            if proc.returncode != 0:
+                raise AssertionError(f"cli (b) on {dev} failed:\n{proc.stderr[-4000:]}")
+            runs[dev] = (restored_pngs(o, small), read_means(os.path.join(o, "inference_all.yml")))
+        compare_outputs("cli (b) card vs CPU, f32, 64x96, the shipped model", read_png,
+                        runs["cuda"], runs["cpu"], 1, 1.0, 0.01)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------- main
@@ -432,6 +652,7 @@ def main() -> int:
 
     results = phase_kernels(torch, kern)
     launches, routes = phase_engine(torch, kern)
+    phase_cli(torch, kern)
     kernels = []
     for name, r in results.items():
         kernels.append({

@@ -15,6 +15,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
+// Flat pixel index of output image row y, column x: (img, y, x) of a
+// (batch, H, W, C) output, or, rows2-packed (H even), the pixel of a
+// (batch, H/2, W, 2C) output whose channel half (y & 1) holds row y.  Times
+// C, plus the channel, gives the element.
+__host__ __device__ __forceinline__ long long out_pixel(long long img, int y, int x, int H,
+                                                        int W, bool packed) {
+  return packed ? ((img * (H / 2) + y / 2) * W + x) * 2 + (y & 1) : (img * H + y) * W + x;
+}
+
 // dtype codes shared with the Python wrappers
 enum DType { kF32 = 0, kBF16 = 1 };
 

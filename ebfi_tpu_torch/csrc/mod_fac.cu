@@ -22,7 +22,9 @@
 // thread, weights streamed through shared memory 32 rows at a time),
 // applies bias (or the ff scratch) and leaky ReLU in registers and
 // multiply-accumulates the FAC product at once.
-// Only the (B, H, W, C) output is written.
+// Only the (B, H, W, C) output is written; with `packed` (B2p, H even) B2
+// stores it rows2-packed, (B*N, H/2, W, 2C), as ::_kernel_shared does with
+// PACKED=True.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -58,7 +60,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     mod_fac_kernel(const float* __restrict__ src_a, const float* __restrict__ src_b,
                    const float* __restrict__ ev, const float* __restrict__ wk,
                    const float* __restrict__ bias, const float* __restrict__ ffbank,
-                   float* __restrict__ out, int H, int W, int K, int N) {
+                   float* __restrict__ out, int H, int W, int K, int N, bool packed) {
   extern __shared__ __align__(16) float smem[];
   constexpr int HS = halo_stride(CIN);
   float* halo = smem;
@@ -168,7 +170,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (!valid[i]) continue;
-      const long long pix = (b * H + py[i]) * W + px[i];
+      const long long pix = ebfi::out_pixel(b, py[i], px[i], H, W, packed);
 #pragma unroll
       for (int j = 0; j < 4; ++j) out[pix * kTC + c0 + j] = oacc[i][j];
     }
@@ -178,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 template <int CIN, int MODE>
 cudaError_t launch(int nbatch, int H, int W, int K, int N, const void* src_a, const void* src_b,
                    const void* ev, const void* wk, const void* bias, const void* ffbank,
-                   void* out, cudaStream_t stream) {
+                   void* out, cudaStream_t stream, bool packed = false) {
   if (nbatch > 65535) return cudaErrorInvalidConfiguration;
   auto kern = mod_fac_kernel<CIN, MODE>;
   const size_t smem = smem_bytes(CIN);
@@ -190,7 +192,7 @@ cudaError_t launch(int nbatch, int H, int W, int K, int N, const void* src_a, co
       static_cast<const float*>(src_a), static_cast<const float*>(src_b),
       static_cast<const float*>(ev), static_cast<const float*>(wk),
       static_cast<const float*>(bias), static_cast<const float*>(ffbank),
-      static_cast<float*>(out), H, W, K, N);
+      static_cast<float*>(out), H, W, K, N, packed);
   return cudaGetLastError();
 }
 
@@ -205,11 +207,12 @@ cudaError_t fused(const void* ev, const void* ff, const void* wk, const void* bi
 
 cudaError_t shared(const void* ev, const void* ff, const void* wke, const void* wkf,
                    const void* bias, void* scratch, void* out, int B, int N, int H, int W,
-                   int K, cudaStream_t s) {
+                   int K, bool packed, cudaStream_t s) {
   cudaError_t e =
       launch<kTC, kFFHalf>(B, H, W, K, 1, ff, ff, nullptr, wkf, bias, nullptr, scratch, s);
   if (e != cudaSuccess) return e;
-  return launch<kTC, kShared>(B * N, H, W, K, N, ev, ev, ev, wke, nullptr, scratch, out, s);
+  return launch<kTC, kShared>(B * N, H, W, K, N, ev, ev, ev, wke, nullptr, scratch, out, s,
+                              packed);
 }
 
 }  // namespace
@@ -223,13 +226,16 @@ extern "C" int ebfi_mod_fac_fused(const void* ev, const void* ff, const void* wk
   return (int)fused(ev, ff, wk, bias, out, B, H, W, K, static_cast<cudaStream_t>(stream));
 }
 
-// B2 in f32.  ev, out: (B*N, H, W, C); ff: (B, H, W, C); wke, wkf: (9*C, K*K*C) the
+// B2 in f32.  ev: (B*N, H, W, C); ff: (B, H, W, C); wke, wkf: (9*C, K*K*C) the
 // ev and ff input halves of the HWIO weight; bias: (K*K*C,) f32; scratch:
-// (B, H, W, K*K*C) f32.
+// (B, H, W, K*K*C) f32; out: (B*N, H, W, C), or (B*N, H/2, W, 2C) when packed
+// (H even).
 extern "C" int ebfi_mod_fac_shared(const void* ev, const void* ff, const void* wke,
                                    const void* wkf, const void* bias, void* scratch, void* out,
-                                   int B, int N, int H, int W, int C, int K, void* stream) {
-  if (bad_shape(B, H, W, C, K) || N <= 0) return (int)cudaErrorInvalidValue;
-  return (int)shared(ev, ff, wke, wkf, bias, scratch, out, B, N, H, W, K,
+                                   int B, int N, int H, int W, int C, int K, int packed,
+                                   void* stream) {
+  if (bad_shape(B, H, W, C, K) || N <= 0 || (packed && H % 2))
+    return (int)cudaErrorInvalidValue;
+  return (int)shared(ev, ff, wke, wkf, bias, scratch, out, B, N, H, W, K, packed != 0,
                      static_cast<cudaStream_t>(stream));
 }

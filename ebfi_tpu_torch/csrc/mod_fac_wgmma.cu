@@ -9,6 +9,9 @@
 // per frame and rounds it to bf16 into a tap-major scratch (B, K*K, H, W, C),
 // as the TPU kernel's band scratch rounds it; mode kShared then computes
 // only the ev half per timestamp, adds the scratch, and applies lrelu + FAC.
+// With `packed` (B2p, H even) kShared stores its output rows2-packed,
+// (B*N, H/2, W, 2C), as ::_kernel_shared does with PACKED=True: only the
+// output address changes.
 //
 // Bound on the H100: operations (bank conv depth 9*2C = 1152 into K*K*C =
 // 1600 channels per pixel; 989 TFLOP/s bf16).  The design:
@@ -75,6 +78,7 @@ struct Params {
   const bf16* ffbank;   // (B, K*K, H, W, C): shared
   bf16* out;            // fused, shared: (batch, H, W, C); ffhalf: (B, K*K, H, W, C)
   int H, W, K, N, tiles_x, tiles_y, groups;
+  int packed;           // shared: store the output rows2-packed
 };
 
 template <int MODE>
@@ -270,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, 1) mod_fac_wgmma(const Params p) {
     for (int q = 0; q < 2; ++q) {
       const int px = x0 + prow[q];
       if (px >= W) continue;
-      bf16* o = p.out + ((out_img * H + y) * W + px) * kC + 2 * tig;
+      bf16* o = p.out + ebfi::out_pixel(out_img, y, px, H, W, p.packed) * kC + 2 * tig;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
@@ -333,14 +337,15 @@ extern "C" int ebfi_mod_fac_fused_wgmma(const void* ev, const void* ff, const vo
   return (int)launch<kFused>(p, B, static_cast<cudaStream_t>(stream));
 }
 
-// B2 in bf16.  ev, out: (B*N, H, W, 64); ff: (B, H, W, 64); wpack_e, wpack_f:
+// B2 in bf16.  ev: (B*N, H, W, 64); ff: (B, H, W, 64); wpack_e, wpack_f:
 // (K*K, 9, 64, 64) swizzled tiles of the ev and ff input halves; bias
-// (K*K*64,) f32; scratch: (B, K*K, H, W, 64) bf16, the ff half plus bias.
+// (K*K*64,) f32; scratch: (B, K*K, H, W, 64) bf16, the ff half plus bias;
+// out: (B*N, H, W, 64), or (B*N, H/2, W, 128) when packed (H even).
 extern "C" int ebfi_mod_fac_shared_wgmma(const void* ev, const void* ff, const void* wpack_e,
                                          const void* wpack_f, const void* bias, void* scratch,
                                          void* out, int B, int N, int H, int W, int C, int K,
-                                         void* stream) {
-  if (bad_shape(B, H, W, C, K) || N <= 0 ||
+                                         int packed, void* stream) {
+  if (bad_shape(B, H, W, C, K) || N <= 0 || (packed && H % 2) ||
       !aligned16({ev, ff, wpack_e, wpack_f, bias, scratch, out}))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -356,5 +361,6 @@ extern "C" int ebfi_mod_fac_shared_wgmma(const void* ev, const void* ff, const v
   ps.wpack = static_cast<const bf16*>(wpack_e);
   ps.ffbank = static_cast<const bf16*>(scratch);
   ps.out = static_cast<bf16*>(out);
+  ps.packed = packed != 0;
   return (int)launch<kShared>(ps, B, s);
 }

@@ -9,6 +9,10 @@ fused=False: the bank conv is a cuDNN conv and the bank is materialised;
 FAC runs as kernel B1 (CUDA) or its plain version (CPU).  fused=True: the
 bank is predicted and applied in one kernel, B3 in full mode and B2 in
 tail mode, and never reaches device memory (the plain versions on CPU).
+fused=True takes the fused path only where those kernels take the call
+(leaky ReLU, frame features C1 wide, and on the card C1 = 64 and, in bf16,
+K <= 5), as the JAX package gates its Pallas kernels; otherwise it runs
+the unfused path, which takes any width.
 """
 from __future__ import annotations
 
@@ -18,7 +22,11 @@ import torch
 import torch.nn as nn
 
 from ..ops import kernel_conv2d_auto
-from ..ops.cuda.mod_fac import modification_fac_fused, modification_fac_fused_shared
+from ..ops.cuda.mod_fac import (
+    cuda_kernel_takes,
+    modification_fac_fused,
+    modification_fac_fused_shared,
+)
 from .layers import ConvLayer, conv2d_nhwc
 
 
@@ -42,6 +50,18 @@ class Modification(nn.Module):
         self.conv3 = ConvLayer(C1, C1, 3, 1, 1, activation, norm)
         self.conv2 = ConvLayer(C1, C1, 3, 1, 1, activation, norm)
 
+    def use_fused(self, frame_feat: torch.Tensor) -> bool:
+        """Whether a call with these frame features runs the fused kernels.
+        Hoist and tail decide alike: both see the frame features, and the
+        tail's event features share their dtype and device."""
+        C1, K = self.frame_basech, self.kernel_size
+        return (
+            self.fused
+            and self.fused_capable
+            and frame_feat.shape[-1] == C1
+            and cuda_kernel_takes(C1, K, frame_feat.dtype, frame_feat.device)
+        )
+
     def _bank_weights(self):
         """The bank conv's weight as HWIO (3, 3, 2C, K*K*C) and its bias."""
         conv = self.kernel_conv.conv
@@ -61,7 +81,7 @@ class Modification(nn.Module):
         bias, or nothing when fused (B2 computes it itself).  mode='tail'
         takes event_feat at batch N and frame_feat at batch 1."""
         C1, K = self.frame_basech, self.kernel_size
-        use_fused = self.fused and self.fused_capable
+        use_fused = self.use_fused(frame_feat)
         conv = self.kernel_conv.conv
         if mode == "hoist":
             if use_fused:

@@ -3,7 +3,8 @@
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 PyTorch version, kept in the same module, for CPU tensors.  Each counts its
 kernel launches in a plain integer attribute ``launches``; B2 and B3, which
-route by dtype, also count per route in ``launches_by_route``.
+route by dtype, also count per route in ``launches_by_route``, and count
+in ``launches_packed`` how many of their launches stored rows2-packed.
 """
 from .fac import kernel_conv2d_cuda, fac_plain
 from .mod_fac import (
@@ -23,6 +24,8 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "launches_packed"):
+            fn.launches_packed = 0
         for route in getattr(fn, "launches_by_route", {}):
             fn.launches_by_route[route] = 0
 

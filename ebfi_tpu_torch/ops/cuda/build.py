@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources go through one ``nvcc`` call into one shared
-library with a plain C interface, loaded with ``ctypes``.  The library's
-name carries a hash of the sources and flags, so a warm checkout loads it
-without rebuilding; a build writes to a temporary name and renames it into
-place, so an interrupted build leaves no half-written library.  Nothing
-here runs at import time.
+Each ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with
+a plain C interface, loaded with ``ctypes``.  The library's name carries a
+hash of the sources and flags, so a warm checkout loads it without
+rebuilding; a build writes to a temporary name and renames it into place,
+so an interrupted build leaves no half-written library.  Nothing here runs
+at import time.
 """
 from __future__ import annotations
 
@@ -21,10 +22,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 NVCC_TIMEOUT_S = 300
 
 _P = ctypes.c_void_p
@@ -34,9 +33,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     "ebfi_fac_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ebfi_mod_fac_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ebfi_mod_fac_shared": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ebfi_mod_fac_shared": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "ebfi_mod_fac_fused_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ebfi_mod_fac_shared_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ebfi_mod_fac_shared_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -74,24 +73,44 @@ def build() -> tuple[Path, float, str]:
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu, _ = _sources()
-    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    tag = f"tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{f.stem}.{tag}.o" for f in cu]
+    tmp = out.with_name(f"{out.name}.{tag}")
     t0 = time.perf_counter()
+    log = []
     try:
-        proc = subprocess.run(
-            cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S, check=False
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}{proc.stdout}"
-            )
+        # one nvcc per source, all at once; then one link
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for f, o in zip(cu, objs)
+        ]
+        failed = []
+        for f, proc in zip(cu, procs):
+            try:
+                text, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text, _ = proc.communicate()
+                failed.append(f"{f.name}: nvcc timed out after {NVCC_TIMEOUT_S} s")
+            log.append(text)
+            if proc.returncode:
+                failed.append(f"{f.name}: nvcc failed with exit code {proc.returncode}:\n{text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed with exit code {link.returncode}:\n"
+                               f"{link.stderr}{link.stdout}")
         os.replace(tmp, out)
     finally:
-        if tmp.exists():
-            tmp.unlink()
-    log = proc.stderr + proc.stdout
-    (BUILD_DIR / f"{out.stem}.log").write_text(log)
-    return out, time.perf_counter() - t0, log
+        for f in [tmp, *objs]:
+            if f.exists():
+                f.unlink()
+    text = "".join(log)
+    (BUILD_DIR / f"{out.stem}.log").write_text(text)
+    return out, time.perf_counter() - t0, text
 
 
 @functools.cache

@@ -2,7 +2,8 @@
 
 B3 replaces ``ebfi_tpu/ops/pallas/mod_fac.py::_kernel`` (public
 ``modification_fac_fused``); B2 replaces ``::_kernel_shared`` (public
-``modification_fac_fused_shared``, unpacked output).
+``modification_fac_fused_shared``, and with ``packed_rows2`` the rows2-packed
+store of ``modification_fac_fused_shared_packed``, B2p).
 
 Bound on the H100: operations.  The 3x3 bank conv (depth 9*2C = 1152 into
 K*K*C = 1600 channels) is hundreds of flops per byte.  Both kernels keep
@@ -50,15 +51,27 @@ def mod_fac_plain(ev, ff, wk, bk, kernel_size: int = 5) -> torch.Tensor:
     return kernel_conv2d(ev, bank, kernel_size, layout="tap_major")
 
 
-def mod_fac_shared_plain(ev, ff, wk, bk, kernel_size: int = 5) -> torch.Tensor:
+def mod_fac_shared_plain(ev, ff, wk, bk, kernel_size: int = 5,
+                         packed_rows2: bool = False) -> torch.Tensor:
     """Plain version of B2 (port of ``mod_fac.py::_xla_twin_shared``): the
     bank conv split by input halves, the ff half at batch B repeated over
-    each frame's N timestamps (ev at batch B*N)."""
+    each frame's N timestamps (ev at batch B*N).  packed_rows2 returns the
+    result rows2-packed (see :func:`modification_fac_fused_shared`)."""
+    _check_rows2(ev.shape[1], packed_rows2)
     BN, B, C = ev.shape[0], ff.shape[0], ff.shape[-1]
     bank_ff = _conv3x3(ff, wk[:, :, C:, :]).repeat_interleave(BN // B, dim=0)
     bank = _conv3x3(ev, wk[:, :, :C, :]) + bank_ff
     bank = F.leaky_relu(bank + bk.to(bank.dtype), 0.01).to(ev.dtype)
-    return kernel_conv2d(ev, bank, kernel_size, layout="tap_major")
+    out = kernel_conv2d(ev, bank, kernel_size, layout="tap_major")
+    if not packed_rows2:
+        return out
+    H, W = out.shape[1:3]
+    return out.view(BN, H // 2, 2, W, C).permute(0, 1, 3, 2, 4).reshape(BN, H // 2, W, 2 * C)
+
+
+def _check_rows2(H: int, packed_rows2: bool) -> None:
+    if packed_rows2 and H % 2:
+        raise ValueError(f"packed_rows2 requires an even H, got H={H}")
 
 
 def pack_bank_weight(wk: torch.Tensor) -> torch.Tensor:
@@ -92,6 +105,20 @@ def _swizzle(w):
     return torch.gather(w, -2, idx.expand(*w.shape[:-3], TILE, TILE // 8, 8))
 
 
+def cuda_kernel_takes(C: int, K: int, dtype: torch.dtype, device) -> bool:
+    """Whether B2/B3 take a call with C channels, kernel_size K and tensors
+    of this dtype on this device.  The plain versions (CPU tensors) take
+    every C and K; the CUDA kernels take C = 64, odd K, f32 or bf16, and
+    in bf16 K <= 5.  Callers that must not raise gate on this."""
+    if torch.device(device).type != "cuda":
+        return True
+    if C != KERNEL_CHANNELS or K % 2 != 1:
+        return False
+    if dtype == torch.bfloat16:
+        return K <= WGMMA_MAX_K
+    return dtype == torch.float32
+
+
 def _check_weights(what, C, K, wk, bk):
     if C != KERNEL_CHANNELS:
         raise ValueError(f"{what}: the CUDA kernel takes C={KERNEL_CHANNELS} channels, got {C}")
@@ -118,9 +145,10 @@ def _route(what, dtype, K) -> str:
     raise TypeError(f"{what}: dtype {dtype} not supported (float32 or bfloat16)")
 
 
-def _count(fn, route):
+def _count(fn, route, packed=False):
     fn.launches += 1
     fn.launches_by_route[route] += 1
+    fn.launches_packed += packed
 
 
 def modification_fac_fused(ev, ff, wk, bk, kernel_size: int = 5) -> torch.Tensor:
@@ -163,25 +191,31 @@ def modification_fac_fused(ev, ff, wk, bk, kernel_size: int = 5) -> torch.Tensor
     return out
 
 
-def modification_fac_fused_shared(ev, ff, wk, bk, kernel_size: int = 5) -> torch.Tensor:
+def modification_fac_fused_shared(ev, ff, wk, bk, kernel_size: int = 5,
+                                  packed_rows2: bool = False) -> torch.Tensor:
     """The fused bank + FAC for N timestamps sharing one frame: ev
     (B*N, H, W, C) b-major, ff (B, H, W, C).  The ff half of the bank conv
     plus bias is computed once per frame and rounded to the input dtype.
+    packed_rows2 (H even) stores the same values rows2-packed, (B*N, H/2,
+    W, 2C): image row 2r in channels [0, C) of packed row r, row 2r + 1 in
+    [C, 2C) (``modification_fac_fused_shared_packed`` of the JAX package).
     CUDA tensors launch B2 (tensor cores in bf16, CUDA cores in f32); CPU
     tensors run :func:`mod_fac_shared_plain`."""
     if ev.device.type == "cpu":
-        return mod_fac_shared_plain(ev, ff, wk, bk, kernel_size)
+        return mod_fac_shared_plain(ev, ff, wk, bk, kernel_size, packed_rows2)
     what = "modification_fac_fused_shared"
     K = kernel_size
     BN, H, W, C = ev.shape
     B = ff.shape[0]
     _check_weights(what, C, K, wk, bk)
     route = _route(what, ev.dtype, K)
+    _check_rows2(H, packed_rows2)
     if tuple(ff.shape[1:]) != (H, W, C) or B == 0 or BN % B:
         raise ValueError(f"ff shape {tuple(ff.shape)} does not divide ev shape {tuple(ev.shape)}")
     N = BN // B
     b32 = bk.float().contiguous()
-    out = torch.empty_like(ev)
+    shape = (BN, H // 2, W, 2 * C) if packed_rows2 else (BN, H, W, C)
+    out = torch.empty(shape, dtype=ev.dtype, device=ev.device)
     lib = load_library()
     if route == "wgmma_bf16":
         wpe = pack_bank_weight(wk[:, :, :C, :].to(ev.dtype))
@@ -193,7 +227,8 @@ def modification_fac_fused_shared(ev, ff, wk, bk, kernel_size: int = 5) -> torch
         check_inputs(what, {"bk": b32}, torch.float32)
         err = lib.ebfi_mod_fac_shared_wgmma(
             ev.data_ptr(), ff.data_ptr(), wpe.data_ptr(), wpf.data_ptr(), b32.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), B, N, H, W, C, K, stream_handle(ev.device),
+            scratch.data_ptr(), out.data_ptr(), B, N, H, W, C, K, int(packed_rows2),
+            stream_handle(ev.device),
         )
         check(lib, err, "ebfi_mod_fac_shared_wgmma")
     else:
@@ -204,13 +239,15 @@ def modification_fac_fused_shared(ev, ff, wk, bk, kernel_size: int = 5) -> torch
         scratch = torch.empty((B, H, W, K * K * C), dtype=ev.dtype, device=ev.device)
         err = lib.ebfi_mod_fac_shared(
             ev.data_ptr(), ff.data_ptr(), wke.data_ptr(), wkf.data_ptr(), b32.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), B, N, H, W, C, K, stream_handle(ev.device),
+            scratch.data_ptr(), out.data_ptr(), B, N, H, W, C, K, int(packed_rows2),
+            stream_handle(ev.device),
         )
         check(lib, err, "ebfi_mod_fac_shared")
-    _count(modification_fac_fused_shared, route)
+    _count(modification_fac_fused_shared, route, packed_rows2)
     return out
 
 
 for _fn in (modification_fac_fused, modification_fac_fused_shared):
     _fn.launches = 0
     _fn.launches_by_route = {"wgmma_bf16": 0, "simt_f32": 0}
+    _fn.launches_packed = 0  # of those, with the rows2-packed store (B2p)

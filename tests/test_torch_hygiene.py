@@ -46,6 +46,11 @@ def test_import_without_jax():
         "    sys.modules[m] = None\n"
         "import ebfi_tpu_torch, ebfi_tpu_torch.models, ebfi_tpu_torch.infer\n"
         "import ebfi_tpu_torch.ops.cuda, chip_smoke\n"
+        "import ebfi_tpu_torch.data, ebfi_tpu_torch.data.clip_dataset\n"
+        "import ebfi_tpu_torch.data.dataloader, ebfi_tpu_torch.data.synth\n"
+        "import ebfi_tpu_torch.infer.cli\n"
+        "import ebfi_tpu_torch.utils.vis, ebfi_tpu_torch.utils.logger\n"
+        "import ebfi_tpu_torch.utils.metrics, ebfi_tpu_torch.utils.checkpoint\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'ebfi_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
     )
@@ -64,6 +69,28 @@ def test_engine_needs_a_card_unless_told_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(model)
     assert InferenceEngine(model, device="cpu").device.type == "cpu"
+
+
+def test_cli_needs_a_card_unless_told_cpu(monkeypatch, tmp_path):
+    """The CLI serves on the card by default; with no card it raises rather
+    than run on the CPU."""
+    from ebfi_tpu_torch.infer.cli import main
+    from ebfi_tpu_torch.models import EVFIAutoEx
+    from ebfi_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = {"name": "EVFIAutoEx", "args": {"FrameBasech": 8, "EventBasech": 8, "InterCH": 8,
+                                          "TB": 2, "step": 1, "channels": [4, 4, 4, 4]}}
+    ckpt = str(tmp_path / "model.pt")
+    save_checkpoint(ckpt, EVFIAutoEx(8, 8, 8, 2, step=1, channels=(4, 4, 4, 4)), {"model": cfg})
+    datalist = tmp_path / "list.txt"
+    datalist.write_text("")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--model_path", ckpt, "--data_list", str(datalist),
+            "--output_path", str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
+    main(argv + ["--device", "cpu"])  # an empty datalist: only the result files
+    assert sorted(os.listdir(tmp_path / "out")) == ["inference_all.yml", "inference_all_step.yml"]
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -201,7 +201,9 @@ def test_routes_by_dtype():
 def test_route_counters_reset_with_the_launch_counts():
     kern.modification_fac_fused.launches_by_route["wgmma_bf16"] = 3
     kern.modification_fac_fused_shared.launches_by_route["simt_f32"] = 2
+    kern.modification_fac_fused_shared.launches_packed = 1
     kern.reset_launch_counts()
+    assert kern.modification_fac_fused_shared.launches_packed == 0
     assert kern.route_counts() == {
         "mod_fac": {"wgmma_bf16": 0, "simt_f32": 0},
         "mod_fac_shared": {"wgmma_bf16": 0, "simt_f32": 0},

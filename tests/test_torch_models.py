@@ -148,6 +148,54 @@ def test_modification_matches_jax(rng, monkeypatch, fused, mode):
     close(got, jmod.apply(jp, *J(ff, ev), mode="tail", hoisted=jh))
 
 
+@pytest.mark.parametrize(
+    "C1,K,dtype,device,takes",
+    [
+        (64, 5, torch.bfloat16, "cuda", True),
+        (64, 5, torch.float32, "cuda", True),
+        (8, 5, torch.bfloat16, "cuda", False),   # the kernels' channel tile is 64
+        (32, 5, torch.float32, "cuda", False),
+        (64, 7, torch.bfloat16, "cuda", False),  # the bf16 kernel's halo covers K <= 5
+        (64, 7, torch.float32, "cuda", True),
+        (64, 4, torch.float32, "cuda", False),   # even K
+        (64, 5, torch.float16, "cuda", False),
+        (8, 7, torch.bfloat16, "cpu", True),     # the plain versions take any C and K
+    ],
+)
+def test_fused_modification_gates_on_what_the_kernels_take(C1, K, dtype, device, takes):
+    """C1: the fused path runs only where B2/B3 take the call, so a model
+    with FrameBasech != 64 (or K > 5 in bf16) is served through the bank
+    conv and B1 on the card instead of raising."""
+    from ebfi_tpu_torch.ops.cuda.mod_fac import cuda_kernel_takes
+
+    assert cuda_kernel_takes(C1, K, dtype, torch.device(device)) is takes
+
+
+@pytest.mark.parametrize("takes", [True, False])
+def test_hoist_and_tail_route_together(rng, monkeypatch, takes):
+    """When the kernels do not take the call, hoist and tail both take the
+    unfused path (hoist returns the ff half of the bank), with the same
+    result; a frame-feature width other than C1 never fuses."""
+    from ebfi_tpu_torch.models import modification
+
+    monkeypatch.setattr(modification, "cuda_kernel_takes", lambda *a: takes)
+    N, H, W = 2, 6, 8
+    ff = rng.standard_normal((1, H, W, C)).astype(np.float32)
+    ev = rng.standard_normal((N, H, W, C)).astype(np.float32)
+    jmod = jm.Modification(frame_basech=C)
+    params = random_params(jmod, rng, *J(ff, ev[:1]))
+    tmod, jp = port(tm.Modification(C, C, fused=True), params)
+    assert tmod.use_fused(*T(ff)) is takes
+    assert not tmod.use_fused(torch.zeros(1, H, W, C + 1))
+    th = tmod(*T(ff), None, mode="hoist")
+    assert set(th) == (set() if takes else {"bank_ff"})
+    got = tmod(*T(ff, ev), mode="tail", hoisted=th)
+    full = tmod(*T(np.repeat(ff, N, 0), ev))
+    jh = jmod.apply(jp, jnp.asarray(ff), None, mode="hoist")
+    close(got, jmod.apply(jp, *J(ff, ev), mode="tail", hoisted=jh))
+    close(full, got.detach().numpy())
+
+
 def test_unet3d18_matches_jax(rng):
     img0 = rng.uniform(0, 1, (2, 16, 24, 3)).astype(np.float32)
     img1 = rng.uniform(0, 1, (2, 16, 24, 3)).astype(np.float32)

@@ -142,6 +142,27 @@ def test_b2_plain_matches_pallas_and_xla_twin(rng):
     close(got, kern.mod_fac_plain(et, rep, wt, bt, K).numpy())
 
 
+@pytest.mark.parametrize("H", [6, 5])
+def test_b2_packed_rows2_plain_matches_pallas(rng, H):
+    """B2p: the plain version's rows2-packed store against the Pallas
+    kernel with PACKED=True (interpret mode); an odd H raises, as there."""
+    B, N, K = 2, 3, 5
+    (et, ej), (ft, fj), (wt, wj), (bt, bj) = _mod_inputs(rng, B, N, H, 12, 8, K)
+    kern.reset_launch_counts()
+    if H % 2:
+        with pytest.raises(ValueError, match="even H"):
+            kern.modification_fac_fused_shared(et, ft, wt, bt, K, packed_rows2=True)
+        with pytest.raises(ValueError):
+            jmod_fac.modification_fac_fused_shared_packed(ej, fj, wj, bj, K)
+        return
+    got = kern.modification_fac_fused_shared(et, ft, wt, bt, K, packed_rows2=True)
+    assert kern.launch_counts()["mod_fac_shared"] == 0
+    assert got.shape == (B * N, H // 2, 12, 16)
+    close(got, jmod_fac.modification_fac_fused_shared_packed(ej, fj, wj, bj, K))
+    flat = kern.modification_fac_fused_shared(et, ft, wt, bt, K)
+    assert torch.equal(got[:, :, :, :8], flat[:, 0::2]) and torch.equal(got[:, :, :, 8:], flat[:, 1::2])
+
+
 def test_plain_versions_run_in_bf16(rng):
     """The CPU path takes bf16 like the kernels do; results stay at bf16
     rounding distance from f32."""
@@ -203,3 +224,37 @@ def test_ctypes_signatures_match_the_c_entry_points():
             for p in (q.strip() for q in params.split(","))
         ]
         assert kinds == build.SIGNATURES[name], name
+
+
+@pytest.mark.parametrize("fail", [None, "mod_fac.cu"])
+def test_build_compiles_each_source_in_parallel_then_links(tmp_path, monkeypatch, fail):
+    """build() starts one compiler per csrc/*.cu source, then links their
+    objects into the hashed library; a failing source is named.  A stand-in
+    compiler (this box has no nvcc) records its calls."""
+    fake = tmp_path / "nvcc"
+    calls = tmp_path / "calls.txt"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {calls}\n'
+        f'case "$*" in *{fail or "NONE"}) echo "error in $*"; exit 3;; esac\n'
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && touch "$2"; shift; done\n'
+        "echo \"ptxas info    : Compiling entry function 'k'\"\n"
+    )
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    sources = sorted(p.name for p in build.CSRC_DIR.glob("*.cu"))
+    if fail:
+        with pytest.raises(RuntimeError, match=fail):
+            build.build()
+        assert not build.library_path().exists()
+    else:
+        path, seconds, log = build.build()
+        assert path == build.library_path() and path.exists() and seconds > 0
+        assert log.count("Compiling entry function") == len(sources)
+        assert build.build()[1:] == (0.0, "")  # cached
+    lines = calls.read_text().splitlines()
+    compiles = [ln for ln in lines if " -c " in ln]
+    assert sorted(ln.split()[-1].rsplit("/", 1)[-1] for ln in compiles) == sources
+    assert len(lines) == len(sources) + (0 if fail else 1)  # the link
+    assert [p.name for p in (tmp_path / "_build").iterdir() if p.suffix == ".o"] == []
