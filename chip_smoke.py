@@ -30,10 +30,25 @@ seconds elapsed:
    the host and device time of each blurry frame is printed; (c) a model
    with FrameBasech 8 in bf16 takes the unfused path (cuDNN bank conv and
    B1), card against CPU; (b) ``python -m ebfi_tpu_torch.infer`` in f32 on a
-   64x96 clip, on the card and with ``--device cpu``, outputs compared.
+   64x96 clip, on the card and with ``--device cpu``, outputs compared;
+6. training on the card: (a) ``ebfi_tpu_torch.train.cli.main`` trains the
+   shipped model (``configs/train_evfi.yml`` with ';' overrides: a
+   synthetic clip, 20 iterations, checkpoints and validation every 10)
+   in f32 at batch 8 on 128x128 crops, through B1 (unfused Modification);
+   it resumes from ``checkpoint-iteration10.pt`` to step 20, and its last
+   checkpoint serves through ``ebfi_tpu_torch.infer.cli.load_model``;
+   (b) the same in bf16 with FastVariants, through B3 on the tensor cores
+   alone; each prints its steady ms per iteration and a profile of one
+   step with the plain backward's share; (c) the gradients of B1, B3 (bf16
+   and f32), B2 and B2p (bf16) at the training shapes against autograd through
+   their plain versions, and a fused Modification's against the same
+   module with the plain version's graph on B3's values; (d) one Adam
+   step of a small model on the card against the CPU.
 
-The line before the last is a JSON object with the kernels' numbers; the
-last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
+The line before the last is a JSON object with the kernels' numbers
+(``launches_train``: B1's launches in run (a), validation forwards
+included, and B3's in run (b)); the last line is ``{"ok": true,
+"device": {...}}``.  Any failure raises and
 the run exits non-zero; without a CUDA card it exits 2 and prints no
 result.
 """
@@ -305,11 +320,14 @@ def serve(torch, kern, label, kernel_name, call, requests, frames_per_request, r
     return outs, counts, routes
 
 
-def breakdown(torch, label, call, top=12):
+def breakdown(torch, label, call, top=12, ranges=()):
     """Where one steady request's time goes: torch.profiler's device-side
     events (kernels, copies, memsets) summed by name, the top ones with
     their share of the request's wall time, and the device's idle share.
-    Fails if the profiler records no device time."""
+    Fails if the profiler records no device time.  ``ranges`` names
+    ``record_function`` ranges whose device time is reported apart: their
+    device-side span where the profiler records one, else the device time
+    of the kernels launched under them (``key_averages``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -319,9 +337,15 @@ def breakdown(torch, label, call, top=12):
         call()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    per = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    per, spans = {}, {}
+    events = prof.events()
+    # record_function ranges (the optimizer's, ours) also appear on the
+    # device's timeline as spans; they are not kernels
+    annotations = set(ranges) | {e.name for e in events if getattr(e, "is_user_annotation", False)}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name in annotations:
+            spans[e.name] = spans.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        elif e.device_type == DeviceType.CUDA:
             acc = per.setdefault(e.name, [0.0, 0])
             acc[0] += e.time_range.elapsed_us() / 1e3
             acc[1] += 1
@@ -333,8 +357,20 @@ def breakdown(torch, label, call, top=12):
         f"{100 * (1 - busy_ms / wall_ms):.1f} %; {len(per)} kernel names, "
         f"{sum(v[1] for v in per.values())} launches")
     for name, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:top]:
-        log(f"  {ms:9.3f} ms {100 * ms / wall_ms:5.1f} % of request {n:5d} launches  "
+        log(f"  {ms:9.3f} ms {100 * ms / wall_ms:5.1f} % of the wall {n:5d} launches  "
             f"{name[:110]}")
+    averages = {a.key: a for a in prof.key_averages()} if ranges else {}
+    for r in ranges:
+        if r in spans:
+            ms, how = spans[r], "device-side span of the range, first kernel to last, gaps included"
+        elif r in averages:
+            a = averages[r]
+            ms = getattr(a, "device_time_total", getattr(a, "cuda_time_total", 0.0)) / 1e3
+            how = "device time of the kernels under the range (key_averages)"
+        else:
+            log(f"  range {r}: not recorded")
+            continue
+        log(f"  range {r}: {ms:.3f} ms, {100 * ms / wall_ms:.1f} % of the wall ({how})")
 
 
 def phase_engine(torch, kern):
@@ -602,6 +638,352 @@ def phase_cli(torch, kern):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------- training
+
+TRAIN_ITERS = 20  # each run of (a) and (b); checkpoints and validation every 10
+TRAIN_CLIP = (65, 144, 176)  # 4 periods of 16 frames; larger than the 128x128 crops
+GRAD_TOL_REL = {"float32": 1e-5, "bfloat16": 1e-2}  # Function vs autograd through the plain version
+STEADY_STEPS = 8
+SMALL_TRAIN_CFG = {  # (d): widths 64 where Modification needs them, small elsewhere
+    "name": "EVFIAutoEx",
+    "args": {"FrameBasech": 64, "EventBasech": 64, "InterCH": 16, "TB": 4, "step": 2,
+             "BlurryFashion": "RGBLap", "BLInch": 4, "channels": [8, 8, 8, 8]},
+}
+
+
+def train_config(tmp, name, clip, extra):
+    """configs/train_evfi.yml with ';' overrides, written where the CLI
+    reads it: the clip 8 times in the train list (one batch of 8 windows),
+    twice in the valid list (one batch of 2)."""
+    from ebfi_tpu_torch.train.config import ConfigParser
+    from ebfi_tpu_torch.utils.logger import dump_yaml
+
+    lists = {}
+    for split, n in (("train", 8), ("valid", 2)):
+        lists[split] = os.path.join(tmp, f"{split}.txt")
+        with open(lists[split], "w") as f:
+            f.write((clip + "\n") * n)
+    ov = {
+        "trainer;output_path": os.path.join(tmp, "out"),
+        "trainer;iteration_based_train;iterations": TRAIN_ITERS,
+        "trainer;iteration_based_train;save_period": 10,
+        "trainer;iteration_based_train;valid_step": 10,
+        "trainer;iteration_based_train;train_log_step": 5,
+        "trainer;tensorboard": False,
+        "train_dataloader;path_to_datalist_txt": lists["train"],
+        "valid_dataloader;path_to_datalist_txt": lists["valid"],
+        **extra,
+    }
+    cp = ConfigParser.from_yaml("configs/train_evfi.yml", overrides=ov, make_dirs=False)
+    path = os.path.join(tmp, f"{name}.yml")
+    with open(path, "w") as f:
+        f.write(dump_yaml(cp.config))
+    return path
+
+
+def steady_step_ms(torch, trainer, steps=STEADY_STEPS):
+    """ms per training iteration of the trainer's own step on batches of
+    its loader, one warm-up, host clock around synchronised steps."""
+    window = next(trainer._windows(trainer.train_loader))
+    batches = list(trainer._batches_from_window(window))[: steps + 1]
+    trainer.train_step(trainer.state, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        trainer.train_step(trainer.state, b)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps, batches[-1]
+
+
+def train_run(torch, kern, label, train_cli, argv):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, routes = kern.launch_counts(), kern.route_counts()
+    log(f"train {label}: {' '.join(argv)}: step {trainer.state.step} in {wall:.1f} s wall "
+        f"(model build, loader, validation and checkpoints included); launches {counts}; "
+        f"routes {routes}; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return trainer, counts, routes, wall
+
+
+def eval_forwards(trainer, validations):
+    """Forward calls of the validations: batches of the valid loader times
+    L x NumP x NumI per window (L loads of NumP periods, NumI = NumP x
+    NumFramePerPeriod timestamps)."""
+    ds = trainer.cp["valid_dataloader"]["dataset"]
+    num_p = ds["NumPeriodPerLoad"]
+    loads = (ds["NumPeriodPerSeq"] - num_p) // ds["SlidingWindowLoad"] + 1
+    return validations * len(trainer.valid_loader) * loads * num_p * num_p * ds["NumFramePerPeriod"]
+
+
+def phase_train(torch, kern):
+    from ebfi_tpu_torch.data.synth import write_clip_npz
+    from ebfi_tpu_torch.infer import cli as infer_cli
+    from ebfi_tpu_torch.train import cli as train_cli
+
+    tmp = tempfile.mkdtemp(prefix="ebfi_chip_train_")
+    out = {}
+    try:
+        clip = os.path.join(tmp, "clip.npz")
+        frames, h, w = TRAIN_CLIP
+        write_clip_npz(clip, num_frames=frames, H=h, W=w, seed=SEED + 3)
+        # ---- (a) f32, the shipped config: unfused Modification, B1 forward
+        cfg_a = train_config(tmp, "f32", clip, {})
+        trainer, counts, routes, wall = train_run(torch, kern, "(a) f32", train_cli,
+                                                  ["-c", cfg_a, "-id", "f32"])
+        save_dir = trainer.cp.save_dir
+        names = sorted(os.listdir(save_dir))
+        n_eval = eval_forwards(trainer, TRAIN_ITERS // 10)
+        losses = trainer.train_metrics
+        ok = (trainer.state.step == TRAIN_ITERS
+              and counts == {"fac": TRAIN_ITERS + n_eval, "mod_fac": 0, "mod_fac_shared": 0}
+              and {"checkpoint-iteration10.pt", "checkpoint-iteration20.pt"} <= set(names)
+              and np.isfinite(losses.avg("train_loss")) and losses._counts["train_loss"] == 4)
+        log(f"check train (a): {TRAIN_ITERS} steps, B1 once per step and per validation forward "
+            f"({TRAIN_ITERS} + {n_eval}), no B2/B3, mean logged loss "
+            f"{losses.avg('train_loss'):.4e} finite; checkpoints {names} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("train (a): the f32 run did not go as expected")
+        out["a_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["train_launches"] = {"B1_fac": counts["fac"]}  # steps and validation forwards
+        final = {k: v.detach().cpu() for k, v in trainer.state.model.state_dict().items()}
+
+        # resume from step 10: steps 11..20, one validation at 20
+        resumed, counts_r, _, _ = train_run(
+            torch, kern, "(a) resume", train_cli,
+            ["-c", cfg_a, "-id", "f32_resumed", "-r", os.path.join(save_dir, "checkpoint-iteration10.pt")])
+        n_eval_r = eval_forwards(resumed, 1)
+        ok = resumed.state.step == TRAIN_ITERS and counts_r["fac"] == TRAIN_ITERS - 10 + n_eval_r
+        log(f"check train (a) resume from checkpoint-iteration10.pt: ended at step "
+            f"{resumed.state.step}, {counts_r['fac'] - n_eval_r} steps taken (10 expected) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("train (a): the resumed run did not continue from step 10")
+        del resumed
+
+        # the first run's last checkpoint, served by the infer CLI's loader
+        model, engine = infer_cli.load_model(os.path.join(save_dir, "checkpoint-iteration20.pt"),
+                                             precision="f32", device="cuda")
+        same = all(torch.equal(final[k], v) for k, v in model.state_dict().items())
+        rng = np.random.default_rng(SEED + 4)
+        req = make_request(torch, rng, 64, 96, 4)
+        served = engine.interpolate(*req, outputs="final")[1]
+        ok = same and tuple(served.shape) == (4, 1, 64, 96, 3) and bool(torch.isfinite(served).all())
+        log(f"check train (a) checkpoint-iteration20.pt through infer.cli.load_model: weights "
+            f"equal to the trainer's {same}, interpolate -> {tuple(served.shape)} finite "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("train (a): the checkpoint does not serve")
+        del model, engine, served
+
+        ms, batch = steady_step_ms(torch, trainer)
+        out["a_ms"], out["a_wall"] = ms, wall
+        log(f"train (a) f32 steady: {ms:.2f} ms/iteration, {8 * 1e3 / ms:.1f} samples/s "
+            f"(batch 8, 128x128); peak {out['a_peak_gib']:.2f} GiB; {card_identity()}")
+        breakdown(torch, "train (a) f32, one step", lambda: trainer.train_step(trainer.state, batch),
+                  ranges=("ebfi::fac_backward_plain",))
+        del trainer, batch
+        torch.cuda.empty_cache()
+
+        # ---- (b) bf16 with FastVariants: B3 on the tensor cores
+        cfg_b = train_config(tmp, "bf16", clip, {
+            "model;args;FastVariants": True, "trainer;precision": "bf16",
+            # the eval step runs in f32, as the JAX package's, which would take B3's f32 route
+            "trainer;do_validation": False,
+        })
+        trainer, counts, routes, wall = train_run(torch, kern, "(b) bf16 FastVariants", train_cli,
+                                                  ["-c", cfg_b, "-id", "bf16"])
+        out["b_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        losses = trainer.train_metrics
+        ok = (trainer.state.step == TRAIN_ITERS
+              and counts == {"fac": 0, "mod_fac": TRAIN_ITERS, "mod_fac_shared": 0}
+              and routes["mod_fac"] == {"wgmma_bf16": TRAIN_ITERS, "simt_f32": 0}
+              and np.isfinite(losses.avg("train_loss")))
+        log(f"check train (b): B3 once per step, all on wgmma_bf16, none on simt_f32, no B1; "
+            f"mean logged loss {losses.avg('train_loss'):.4e} finite {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("train (b): the bf16 run did not go as expected")
+        ms, batch = steady_step_ms(torch, trainer)
+        out["b_ms"], out["b_wall"] = ms, wall
+        log(f"train (b) bf16 steady: {ms:.2f} ms/iteration, {8 * 1e3 / ms:.1f} samples/s "
+            f"(batch 8, 128x128); peak {out['b_peak_gib']:.2f} GiB; {card_identity()}")
+        breakdown(torch, "train (b) bf16, one step", lambda: trainer.train_step(trainer.state, batch),
+                  ranges=("ebfi::mod_fac_backward_plain",))
+        out["train_launches"]["B3_mod_fac"] = counts["mod_fac"]
+        del trainer, batch
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bwd = phase_grad_checks(torch, kern)
+    phase_train_card_vs_cpu(torch)
+    log(f"train summary on {card_identity()}: (a) f32 {out['a_ms']:.2f} ms/iteration, "
+        f"{8e3 / out['a_ms']:.1f} samples/s, peak {out['a_peak_gib']:.2f} GiB, run wall "
+        f"{out['a_wall']:.1f} s; (b) bf16 {out['b_ms']:.2f} ms/iteration, "
+        f"{8e3 / out['b_ms']:.1f} samples/s, peak {out['b_peak_gib']:.2f} GiB, run wall "
+        f"{out['b_wall']:.1f} s; plain backward ms at the training shapes "
+        f"{ {k: round(v, 3) for k, v in bwd.items()} }")
+    return out["train_launches"]
+
+
+def grad_check(torch, label, fn, plain, args, diff_idx):
+    """The wrapper on the card against its plain version on the same
+    inputs: the forward against the plain version evaluated in f32 (as
+    phase 3, TOL_REL), and the gradients of sum(out * r), r fixed, against
+    autograd through the plain version in the working dtype (the
+    Function's backward recomputes through the same ops, so only cuDNN's
+    nondeterministic sums separate them: GRAD_TOL_REL, relative to each
+    reference's max).  Raises beyond either.  Returns the backward's ms
+    (CUDA events, one call after a warm-up)."""
+    dname = str(args[0].dtype).split(".")[1]
+    leaves = [a.detach().requires_grad_(i in diff_idx) if torch.is_tensor(a) else a
+              for i, a in enumerate(args)]
+    got = fn(*leaves)
+    if got.grad_fn is None:
+        raise AssertionError(f"grad {label}: the output has no grad_fn")
+    with torch.no_grad():
+        ref32 = plain(*[a.float() if torch.is_tensor(a) else a for a in leaves])
+    fwd_err = (got.float() - ref32).abs().max().item()
+    fwd_tol = TOL_REL[dname] * ref32.abs().max().item()
+    r = torch.randn(got.shape, device=got.device,
+                    generator=torch.Generator(got.device).manual_seed(SEED)).to(got.dtype)
+    wanted = [leaves[i] for i in diff_idx]
+    g_got = torch.autograd.grad(got, wanted, r, retain_graph=True)
+    g_ref = torch.autograd.grad(plain(*leaves), wanted, r)
+    errs = [(a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+            for a, b in zip(g_got, g_ref)]
+    ok = fwd_err <= fwd_tol and all(e <= GRAD_TOL_REL[dname] for e in errs)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.autograd.grad(got, wanted, r, retain_graph=True)  # warm-up
+    torch.cuda.synchronize()
+    start.record()
+    torch.autograd.grad(got, wanted, r)
+    end.record()
+    torch.cuda.synchronize()
+    bwd_ms = start.elapsed_time(end)
+    log(f"grad {label}: forward max_abs_err {fwd_err:.3e} (tol {fwd_tol:.3e}); gradients rel err "
+        f"{', '.join(f'{e:.2e}' for e in errs)} (tol {GRAD_TOL_REL[dname]:.0e}); backward "
+        f"(plain recompute) {bwd_ms:.3f} ms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"grad {label}: the Function disagrees with its plain version")
+    return bwd_ms
+
+
+def phase_grad_checks(torch, kern):
+    """Gradients through B1, B3, B2 and B2p at the training shapes (batch
+    8, 64x64 features, C = 64, K = 5)."""
+    from ebfi_tpu_torch.models import Modification
+
+    rng = np.random.default_rng(SEED + 5)
+    Bt, ht, wt = 8, 64, 64
+
+    def t(shape, dt, scale=1.0):
+        return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).to("cuda", dt)
+
+    res = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    res["B1_f32_bwd_ms"] = grad_check(
+        torch, f"B1 f32 B={Bt} {ht}x{wt}x{C} K={K}", kern.kernel_conv2d_cuda, kern.fac_plain,
+        [t((Bt, ht, wt, C), f32), t((Bt, ht, wt, K * K * C), f32), K], (0, 1))
+    for dt in (bf16, f32):
+        dn = str(dt)[6:]
+        res[f"B3_{dn}_bwd_ms"] = grad_check(
+            torch, f"B3 {dn} B={Bt} {ht}x{wt}x{C} K={K}", kern.modification_fac_fused,
+            kern.mod_fac_plain,
+            [t((Bt, ht, wt, C), dt), t((Bt, ht, wt, C), dt), t((3, 3, 2 * C, K * K * C), dt, 0.05),
+             t((K * K * C,), f32, 0.1), K], (0, 1, 2, 3))
+    for packed in (False, True):
+        name = "B2p" if packed else "B2"
+        res[f"{name}_bf16_bwd_ms"] = grad_check(
+            torch, f"{name} bf16 B=2 N=4 {ht}x{wt}x{C} K={K}",
+            functools.partial(kern.modification_fac_fused_shared, packed_rows2=packed),
+            functools.partial(kern.mod_fac_shared_plain, packed_rows2=packed),
+            [t((Bt, ht, wt, C), bf16), t((2, ht, wt, C), bf16),
+             t((3, 3, 2 * C, K * K * C), bf16, 0.05), t((K * K * C,), f32, 0.1), K], (0, 1, 2, 3))
+
+    # a Modification module in f32 on its fused path (B3), against the same
+    # computation with the plain version's graph carrying B3's values
+    # (plain + (B3 - plain).detach()): the bank weight enters as the
+    # permuted view of kernel_conv.conv.weight, whose gradient must arrive.
+    # With equal forward values, the leaky ReLUs downstream take the same
+    # slopes in both, so only cuDNN's sums separate the backwards
+    torch.manual_seed(SEED)
+    m = Modification(C, C, K, fused=True).cuda()
+    ff, ev, r = t((Bt, ht, wt, C), f32), t((Bt, ht, wt, C), f32), t((Bt, ht, wt, C), f32)
+
+    def plain_module(ff, ev):  # Modification.forward's fused full mode
+        x, (wk, bk) = m.conv1(ev), m._bank_weights()
+        e1 = kern.mod_fac_plain(x, ff, wk, bk, K)
+        with torch.no_grad():
+            e1_kernel = kern.modification_fac_fused(x, ff, wk, bk, K)
+        e1 = m.conv3(e1 + (e1_kernel - e1).detach())
+        return ff * e1 + m.conv2(e1)
+
+    kern.reset_launch_counts()
+    grads = []
+    for fn in (m, plain_module):
+        x = [ff.clone().requires_grad_(), ev.clone().requires_grad_()]
+        m.zero_grad(set_to_none=True)
+        (fn(*x) * r).sum().backward()
+        grads.append([g.grad for g in x] + [p.grad for p in m.parameters()])
+    counts = kern.launch_counts()
+    errs = [((a - b).norm() / b.norm().clamp_min(1e-30)).item() for a, b in zip(*grads)]
+    ok = counts["mod_fac"] == 2 and grads[0][2] is not None and max(errs) <= 1e-5
+    log(f"grad Modification f32 B={Bt} {ht}x{wt}, fused path (B3; launches {counts}, one per "
+        f"side) against the plain version's graph on B3's values: the inputs' and the "
+        f"{len(errs) - 2} parameters' gradients, largest relative L2 error {max(errs):.2e} "
+        f"(tol 1e-5), kernel_conv.conv.weight's {errs[2]:.2e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("grad Modification: the fused path's gradients disagree")
+    return res
+
+
+def phase_train_card_vs_cpu(torch):
+    """(d) One train step of a small model in f32, on the card and on the
+    CPU, from the same weights and batch."""
+    import copy
+
+    from ebfi_tpu_torch.models import build_model, init_weights
+    from ebfi_tpu_torch.train import TrainState, build_optimizer, make_train_step
+
+    lr = 1e-4
+    rng = np.random.default_rng(SEED + 6)
+    Bs, hs, ws, tb = 2, 32, 32, SMALL_TRAIN_CFG["args"]["TB"]
+    batch = {
+        "frame": rng.uniform(0, 1, (Bs, hs, ws, 3)), "event": rng.uniform(0, 2, (Bs, hs, ws, 2 * tb)),
+        "t": rng.uniform(0, 1, (Bs, 1)), "target": rng.uniform(0, 1, (Bs, hs, ws, 3)),
+    }
+    base = init_weights(build_model(SMALL_TRAIN_CFG), SEED)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(base).to(dev)
+        updater, _ = build_optimizer(model, {"name": "Adam", "args": {"lr": lr}})
+        grads = {}
+        for n, p in model.named_parameters():
+            p.register_hook(lambda g, n=n: grads.__setitem__(n, g.detach().cpu()))
+        step = make_train_step()
+        b = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in batch.items()}
+        _, metrics = step(TrainState(model, updater), b)
+        res[dev] = (float(metrics["train_loss"]), grads,
+                    {n: p.detach().cpu() for n, p in model.named_parameters()})
+    (lg, gg, pg), (lc, gc, pc) = res["cuda"], res["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    g_err = max((gg[n] - gc[n]).abs().max().item() / max(gc[n].abs().max().item(), 1e-30)
+                for n in gc)
+    p_err = max((pg[n] - pc[n]).abs().max().item() for n in pc)
+    ok = loss_rel <= 1e-4 and g_err <= 1e-3 and p_err <= 2 * lr * 1.001
+    log(f"check train (d) one Adam step, card vs CPU, f32, {SMALL_TRAIN_CFG['args']} at "
+        f"B={Bs} {hs}x{ws}: loss {lg:.6e} vs {lc:.6e} (rel {loss_rel:.1e}, tol 1e-4); gradients "
+        f"max rel err {g_err:.1e} (tol 1e-3, relative to each tensor's max); parameters max abs "
+        f"diff {p_err:.2e} (tol 2*lr = {2 * lr:.0e}: Adam's first update is lr*g/(|g|+eps), so "
+        f"only a gradient whose sign differs can move a parameter apart) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train (d): the card and the CPU train step disagree")
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -653,6 +1035,7 @@ def main() -> int:
     results = phase_kernels(torch, kern)
     launches, routes = phase_engine(torch, kern)
     phase_cli(torch, kern)
+    train_launches = phase_train(torch, kern)
     kernels = []
     for name, r in results.items():
         kernels.append({
@@ -661,6 +1044,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "bank_conv_cudnn_ms": r["bank_conv_cudnn_ms"],
             "launches_by_route": routes.get(name), "dtype": r["dtype"], "shape": r["shape"],
+            "launches_train": train_launches.get(name),
         })
     faulthandler.cancel_dump_traceback_later()
     print(identity, flush=True)

@@ -1,13 +1,16 @@
-"""Loader over concatenated clip datasets (port of the inference side of
-``ebfi_tpu/data/dataloader.py``: no shuffling, sharding or device
-prefetch).
+"""Loader over concatenated clip datasets (port of
+``ebfi_tpu/data/dataloader.py`` for one shard: no sharding across
+processes; the trainer does the device prefetch).
 
 Items are assembled by a thread pool in the calling process or, with
 ``num_workers > 0``, by worker processes started with ``spawn`` (the
 parent may hold a CUDA context, which must not be forked).  Either way
 batches come out in order with the same contents: the per-item
 augmentation seeds are drawn in the calling thread, in item order, from
-python ``random`` (the reference loader's per-item ``random.randint``).
+python ``random`` (the reference loader's per-item ``random.randint``),
+for the items of the epoch's batches only.  ``shuffle`` permutes the
+items with ``random.Random(seed + epoch)`` (``set_epoch``), and
+``drop_last`` drops a short last batch, as the JAX loader does.
 """
 from __future__ import annotations
 
@@ -47,19 +50,21 @@ def collate(items: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 
 
 class EBFIDataLoader:
-    """Loader over clip datasets, items in order (the inference loader).
+    """Epoch loader over clip datasets.
 
     Args:
       sources: datalist txt path, a single .npz path, or a list of .npz paths.
       dataset_config: per-dataset config dict (see NpzClipDataset).
-      batch_size: items per batch; the last batch may be short.
+      batch_size, shuffle, drop_last: usual semantics.
       real_data: use the real-blur reader.
-      num_workers: worker processes (spawned) when > 0, else
-        ``FETCH_THREADS`` threads of this process.
+      seed: shuffle base seed, combined with the epoch (``set_epoch``).
+      num_threads: item threads of this process (when num_workers is 0).
+      num_workers: worker processes (spawned) when > 0.
     """
 
     def __init__(self, sources, dataset_config: dict, batch_size: int = 1,
-                 real_data: bool = False, num_workers: int = 0):
+                 real_data: bool = False, num_workers: int = 0, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0, num_threads: int = FETCH_THREADS):
         if isinstance(sources, str):
             paths = [sources] if sources.endswith(".npz") else read_datalist(sources)
         else:
@@ -70,16 +75,34 @@ class EBFIDataLoader:
         self.index = [(di, ii) for di, ds in enumerate(self.datasets) for ii in range(len(ds))]
         self.batch_size = batch_size
         self.num_workers = num_workers
+        self.num_threads = num_threads
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _order(self) -> List[int]:
+        order = list(range(len(self.index)))
+        if self.shuffle:
+            random.Random(self.seed + self.epoch).shuffle(order)
+        return order
 
     def __len__(self) -> int:
+        if self.drop_last:
+            return len(self.index) // self.batch_size
         return (len(self.index) + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        """Batches in item order.  Items are fetched by the pool at most
-        one more than it has workers (or a batch) ahead of the batch being
+        """The epoch's batches.  Items are fetched by the pool at most one
+        more than it has workers (or a batch) ahead of the batch being
         assembled, which bounds host memory (a 720p window is ~0.6 GB)."""
-        order = list(range(len(self.index)))
-        batches = [order[b : b + self.batch_size] for b in range(0, len(order), self.batch_size)]
+        bs = self.batch_size
+        order = self._order()
+        order = order[: len(self) * bs]  # drop_last drops the short tail
+        batches = [list(range(b, min(b + bs, len(order)))) for b in range(0, len(order), bs)]
         # drawn here, in the calling thread and in item order, so that
         # augmentation does not depend on scheduling
         seeds = [random.randint(0, 2**32) for _ in order]
@@ -92,7 +115,7 @@ class EBFIDataLoader:
                 initializer=_pp_init, initargs=self._worker_spec,
             )
         else:
-            workers = FETCH_THREADS
+            workers = self.num_threads
             fetch = lambda di, ii, seed: self.datasets[di].get(ii, seed=seed)  # noqa: E731
             pool = cf.ThreadPoolExecutor(workers)
         lookahead = max(workers + 1, self.batch_size)
@@ -102,7 +125,7 @@ class EBFIDataLoader:
                 want = min(len(order), batch[-1] + 1 + lookahead)
                 while len(pending) < want:
                     i = len(pending)
-                    pending.append(pool.submit(fetch, *self.index[i], seeds[i]))
+                    pending.append(pool.submit(fetch, *self.index[order[i]], seeds[i]))
                 items = [pending[i].result() for i in batch]
                 for i in batch:
                     pending[i] = None  # free the (large) result

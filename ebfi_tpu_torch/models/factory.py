@@ -16,7 +16,8 @@ import torch.nn as nn
 from .evfi import EVFIAutoEx
 from .exposure import ExposureDecision
 from .control import ResidualControl
-from .layers import ConvLayer
+from .layers import ConvLayer, SEGating
+from .unet3d import UNet3d18
 
 _EVFI_KEYMAP = {
     "FrameBasech": "frame_basech",
@@ -77,13 +78,29 @@ def build_model(model_cfg: Dict) -> nn.Module:
 # random-weight model's output constant (sigmoid(0) everywhere); at 1.0 the
 # 12 ResidualControl stages saturate it.  0.9 keeps it input-dependent.
 RANDOM_CONV_GAIN = 0.9
+TRAIN_CONV_GAIN = 0.1  # the JAX training init's kaiming_in_init(0.1)
 
 
-def init_weights(model: nn.Module, seed: int) -> nn.Module:
-    """Deterministic random weights, in place, for runs without a trained
-    checkpoint: ConvLayer convs and the ResidualControl stacks get
-    kaiming-normal fan-in at RANDOM_CONV_GAIN and zero bias, GroupNorm ones
-    and zeros, every other conv torch's default U(+-1/sqrt(fan_in))."""
+def init_weights(model: nn.Module, seed: int, scheme: str = "random") -> nn.Module:
+    """Deterministic random weights, in place, from a seeded generator.
+
+    scheme "random" (runs without a trained checkpoint): ConvLayer convs
+    and the ResidualControl stacks get kaiming-normal fan-in at
+    RANDOM_CONV_GAIN and zero bias, GroupNorm ones and zeros, every other
+    conv torch's default U(+-1/sqrt(fan_in)).
+
+    scheme "train" (the start of training): the JAX package's training
+    init per layer (``ebfi_tpu/models/layers.py:23-35``): kaiming-normal
+    fan-in times 0.1 for ConvLayer convs and the ResidualControl stacks
+    (fans as flax counts them on the stacked (S, 3, 3, I, O) and (S, 1, C)
+    shapes, the stage axis included), zero biases; kaiming-normal fan-out
+    for the 3D encoder's convs; U(+-1/sqrt(fan_in)) for the other convs,
+    with a transposed conv's fan-in over its input channels; GroupNorm
+    ones and zeros."""
+    if scheme not in ("random", "train"):
+        raise ValueError(f"unknown init scheme {scheme!r}")
+    train = scheme == "train"
+    gain = TRAIN_CONV_GAIN if train else RANDOM_CONV_GAIN
     g = torch.Generator().manual_seed(seed)
 
     def normal(p, std):
@@ -93,28 +110,43 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         p.copy_((torch.rand(p.shape, generator=g) * 2 - 1) * bound)
 
     done = set()
+    fan_out_convs = set()
+    if train:
+        se_convs = {id(m.conv) for m in model.modules() if isinstance(m, SEGating)}
+        for m in model.modules():
+            if isinstance(m, UNet3d18):
+                fan_out_convs |= {id(c) for c in m.encoder.modules()
+                                  if isinstance(c, nn.Conv3d) and id(c) not in se_convs}
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, ConvLayer):
                 w = m.conv.weight
-                normal(w, RANDOM_CONV_GAIN * math.sqrt(2.0 / math.prod(w.shape[1:])))
+                normal(w, gain * math.sqrt(2.0 / math.prod(w.shape[1:])))
                 m.conv.bias.zero_()
                 done.add(id(m.conv))
             elif isinstance(m, ResidualControl):
                 for name, p in m.named_parameters(recurse=False):
                     if name.endswith("_b"):
                         p.zero_()
-                    else:  # (S, O, I, kh, kw) conv stacks or (S, 1, C) scale maps
-                        fan_in = math.prod(p.shape[2:]) if p.dim() == 5 else 1
-                        normal(p, RANDOM_CONV_GAIN * math.sqrt(2.0 / fan_in))
+                        continue
+                    # (S, O, I, kh, kw) conv stacks or (S, 1, C) scale maps
+                    fan_in = math.prod(p.shape[2:]) if p.dim() == 5 else 1
+                    if train:  # flax counts the stage axis into the receptive field
+                        fan_in *= p.shape[0]
+                    normal(p, gain * math.sqrt(2.0 / fan_in))
             elif isinstance(m, nn.GroupNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-            elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)) and id(m) not in done:
-                # torch's fan-in: dim 1 times the window, for convs and
-                # transposed convs alike
+            elif id(m) in fan_out_convs:
                 w = m.weight
-                bound = 1.0 / math.sqrt(w.shape[1] * math.prod(w.shape[2:]))
+                normal(w, math.sqrt(2.0 / (w.shape[0] * math.prod(w.shape[2:]))))
+            elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)) and id(m) not in done:
+                # torch's fan-in is dim 1 times the window, for convs and
+                # transposed convs alike; the JAX training init takes a
+                # transposed conv's input channels (dim 0)
+                w = m.weight
+                fan_dim = 0 if train and isinstance(m, nn.ConvTranspose3d) else 1
+                bound = 1.0 / math.sqrt(w.shape[fan_dim] * math.prod(w.shape[2:]))
                 uniform(w, bound)
                 if m.bias is not None:
                     uniform(m.bias, bound)

@@ -22,6 +22,11 @@ route by dtype:
 
 A bf16 CUDA call the tensor-core kernel cannot take (C != 64, K > 5,
 data not 16-byte aligned) raises; nothing falls back to another route.
+
+Training: the TPU kernels have no backward kernels; their ``custom_vjp``s
+recompute through the XLA twins.  Here ``torch.autograd.Function``s do the
+same through the plain versions, on CUDA and CPU tensors alike; calls that
+record no autograd go straight to the forward and save nothing.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernel_conv2d import kernel_conv2d
-from ._common import check_inputs, stream_handle
+from ._common import check_inputs, needs_grad, plain_vjp, stream_handle
 from .build import check, load_library
 
 KERNEL_CHANNELS = 64  # the CUDA kernels' channel tile: C must equal it
@@ -151,14 +156,8 @@ def _count(fn, route, packed=False):
     fn.launches_packed += packed
 
 
-def modification_fac_fused(ev, ff, wk, bk, kernel_size: int = 5) -> torch.Tensor:
-    """lrelu(conv3x3(concat(ev, ff)) + bk) bank, FAC-applied to ev, with the
-    bank kept on chip.  ev, ff (B, H, W, C); wk (3, 3, 2C, K*K*C) HWIO with
-    tap-major output channels; bk (K*K*C,).  CUDA tensors launch B3 (the
-    tensor-core kernel in bf16, the CUDA-core kernel in f32); CPU tensors
-    run :func:`mod_fac_plain`."""
-    if ev.device.type == "cpu":
-        return mod_fac_plain(ev, ff, wk, bk, kernel_size)
+def _launch_fused(ev, ff, wk, bk, kernel_size: int) -> torch.Tensor:
+    """One launch of B3 on CUDA tensors; no autograd."""
     what = "modification_fac_fused"
     K = kernel_size
     B, H, W, C = ev.shape
@@ -191,18 +190,47 @@ def modification_fac_fused(ev, ff, wk, bk, kernel_size: int = 5) -> torch.Tensor
     return out
 
 
-def modification_fac_fused_shared(ev, ff, wk, bk, kernel_size: int = 5,
-                                  packed_rows2: bool = False) -> torch.Tensor:
-    """The fused bank + FAC for N timestamps sharing one frame: ev
-    (B*N, H, W, C) b-major, ff (B, H, W, C).  The ff half of the bank conv
-    plus bias is computed once per frame and rounded to the input dtype.
-    packed_rows2 (H even) stores the same values rows2-packed, (B*N, H/2,
-    W, 2C): image row 2r in channels [0, C) of packed row r, row 2r + 1 in
-    [C, 2C) (``modification_fac_fused_shared_packed`` of the JAX package).
-    CUDA tensors launch B2 (tensor cores in bf16, CUDA cores in f32); CPU
-    tensors run :func:`mod_fac_shared_plain`."""
+def _run_fused(ev, ff, wk, bk, kernel_size: int) -> torch.Tensor:
+    """B3's forward without autograd: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
     if ev.device.type == "cpu":
-        return mod_fac_shared_plain(ev, ff, wk, bk, kernel_size, packed_rows2)
+        return mod_fac_plain(ev, ff, wk, bk, kernel_size)
+    return _launch_fused(ev, ff, wk, bk, kernel_size)
+
+
+class _ModFacFunction(torch.autograd.Function):
+    """B3 with a backward through :func:`mod_fac_plain`, as the JAX
+    ``custom_vjp`` of ``modification_fac_fused`` recomputes through its
+    XLA twin (``mod_fac.py:447-461``)."""
+
+    @staticmethod
+    def forward(ctx, ev, ff, wk, bk, kernel_size):
+        ctx.kernel_size = kernel_size
+        ctx.save_for_backward(ev, ff, wk, bk)
+        return _run_fused(ev, ff, wk, bk, kernel_size)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        K = ctx.kernel_size
+        grads = plain_vjp(lambda *a: mod_fac_plain(*a, K), ctx.saved_tensors,
+                          ctx.needs_input_grad[:4], grad_out, "ebfi::mod_fac_backward_plain")
+        return (*grads, None)
+
+
+def modification_fac_fused(ev, ff, wk, bk, kernel_size: int = 5) -> torch.Tensor:
+    """lrelu(conv3x3(concat(ev, ff)) + bk) bank, FAC-applied to ev, with the
+    bank kept on chip.  ev, ff (B, H, W, C); wk (3, 3, 2C, K*K*C) HWIO with
+    tap-major output channels; bk (K*K*C,).  CUDA tensors launch B3 (the
+    tensor-core kernel in bf16, the CUDA-core kernel in f32); CPU tensors
+    run :func:`mod_fac_plain`.  Where autograd records, the gradients of
+    all four inputs recompute through :func:`mod_fac_plain`."""
+    if needs_grad(ev, ff, wk, bk):
+        return _ModFacFunction.apply(ev, ff, wk, bk, kernel_size)
+    return _run_fused(ev, ff, wk, bk, kernel_size)
+
+
+def _launch_shared(ev, ff, wk, bk, kernel_size: int, packed_rows2: bool) -> torch.Tensor:
+    """One launch of B2 (B2p with packed_rows2) on CUDA tensors; no autograd."""
     what = "modification_fac_fused_shared"
     K = kernel_size
     BN, H, W, C = ev.shape
@@ -245,6 +273,53 @@ def modification_fac_fused_shared(ev, ff, wk, bk, kernel_size: int = 5,
         check(lib, err, "ebfi_mod_fac_shared")
     _count(modification_fac_fused_shared, route, packed_rows2)
     return out
+
+
+def _run_shared(ev, ff, wk, bk, kernel_size: int, packed_rows2: bool) -> torch.Tensor:
+    """B2's forward without autograd: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if ev.device.type == "cpu":
+        return mod_fac_shared_plain(ev, ff, wk, bk, kernel_size, packed_rows2)
+    return _launch_shared(ev, ff, wk, bk, kernel_size, packed_rows2)
+
+
+class _ModFacSharedFunction(torch.autograd.Function):
+    """B2 and B2p with a backward through :func:`mod_fac_shared_plain`, as
+    the JAX ``custom_vjp``s of ``modification_fac_fused_shared`` and
+    ``_shared_packed`` recompute through the split XLA twin, with the rows2
+    pack for B2p (``mod_fac.py:384-389``, ``:419-425``).  Like the JAX
+    backward, it ignores the forward's rounding of the ff half plus bias
+    to the input dtype."""
+
+    @staticmethod
+    def forward(ctx, ev, ff, wk, bk, kernel_size, packed_rows2):
+        ctx.kernel_size, ctx.packed_rows2 = kernel_size, packed_rows2
+        ctx.save_for_backward(ev, ff, wk, bk)
+        return _run_shared(ev, ff, wk, bk, kernel_size, packed_rows2)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        K, packed = ctx.kernel_size, ctx.packed_rows2
+        grads = plain_vjp(lambda *a: mod_fac_shared_plain(*a, K, packed), ctx.saved_tensors,
+                          ctx.needs_input_grad[:4], grad_out,
+                          "ebfi::mod_fac_shared_backward_plain")
+        return (*grads, None, None)
+
+
+def modification_fac_fused_shared(ev, ff, wk, bk, kernel_size: int = 5,
+                                  packed_rows2: bool = False) -> torch.Tensor:
+    """The fused bank + FAC for N timestamps sharing one frame: ev
+    (B*N, H, W, C) b-major, ff (B, H, W, C).  The ff half of the bank conv
+    plus bias is computed once per frame and rounded to the input dtype.
+    packed_rows2 (H even) stores the same values rows2-packed, (B*N, H/2,
+    W, 2C): image row 2r in channels [0, C) of packed row r, row 2r + 1 in
+    [C, 2C) (``modification_fac_fused_shared_packed`` of the JAX package).
+    CUDA tensors launch B2 (tensor cores in bf16, CUDA cores in f32); CPU
+    tensors run :func:`mod_fac_shared_plain`.  Where autograd records, the
+    gradients recompute through :func:`mod_fac_shared_plain`."""
+    if needs_grad(ev, ff, wk, bk):
+        return _ModFacSharedFunction.apply(ev, ff, wk, bk, kernel_size, packed_rows2)
+    return _run_shared(ev, ff, wk, bk, kernel_size, packed_rows2)
 
 
 for _fn in (modification_fac_fused, modification_fac_fused_shared):

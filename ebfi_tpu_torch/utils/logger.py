@@ -1,6 +1,6 @@
-"""YAML result files of the inference CLI (port of
-``ebfi_tpu/utils/logger.py``'s ``YamlResultLogger``) with a small YAML
-writer of its own: the serving machine has no YAML library.
+"""Logging setup and YAML result files (port of
+``ebfi_tpu/utils/logger.py``: ``setup_logging`` and ``YamlResultLogger``)
+with a small YAML writer of its own: the port does not depend on PyYAML.
 
 The writer covers what the CLI logs: nested dicts, lists, str, int, float,
 bool and None (numpy scalars become Python ones).  Strings are written
@@ -12,11 +12,40 @@ inside lists are written in flow style.
 from __future__ import annotations
 
 import json
+import logging
+import logging.config
 import math
 import os
 import re
+from typing import Optional
 
 import numpy as np
+
+def setup_logging(log_dir: Optional[str] = None, default_level: int = logging.INFO,
+                  filename: str = "info.txt") -> None:
+    """Console handler, plus a rotating ``info.txt`` in ``log_dir``."""
+    handlers: dict = {
+        "console": {"class": "logging.StreamHandler", "level": "DEBUG",
+                    "formatter": "simple", "stream": "ext://sys.stdout"},
+    }
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
+        handlers["info_file_handler"] = {
+            "class": "logging.handlers.RotatingFileHandler", "level": "INFO",
+            "formatter": "datetime", "filename": os.path.join(log_dir, filename),
+            "maxBytes": 10 * 1024 * 1024, "backupCount": 5, "encoding": "utf8",
+        }
+    logging.config.dictConfig({
+        "version": 1,
+        "disable_existing_loggers": False,
+        "formatters": {
+            "simple": {"format": "%(message)s"},
+            "datetime": {"format": "%(asctime)s - %(name)s - %(levelname)s - %(message)s"},
+        },
+        "handlers": handlers,
+        "root": {"level": default_level, "handlers": list(handlers)},
+    })
+
 
 # characters a YAML reader does not take raw inside a double-quoted scalar
 _NONPRINTABLE = re.compile("[^\x09\x0a\x0d\x20-\x7e\x85\xa0-\ud7ff\ue000-\ufffd\U00010000-\U0010ffff]")

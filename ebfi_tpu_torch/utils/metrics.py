@@ -1,5 +1,5 @@
-"""Metrics of the inference CLI: a running-average tracker (port of
-``ebfi_tpu/utils/metrics.py``) and the numpy PSNR and SSIM of
+"""Metrics of the inference CLI and the trainer: a running-average
+tracker (port of ``ebfi_tpu/utils/metrics.py``) and the numpy PSNR and SSIM of
 ``ebfi_tpu/losses/restore.py`` (skimage semantics: per-channel PSNR with
 ``data_range = target[c].max() - target.min()``; per-channel SSIM with a
 uniform 7x7 window and data_range 2.0; channel means)."""
@@ -16,6 +16,11 @@ class MetricTracker:
     def __init__(self, keys: Iterable[str] = ()):
         self._totals: Dict[str, float] = {k: 0.0 for k in keys}
         self._counts: Dict[str, int] = {k: 0 for k in keys}
+
+    def reset(self) -> None:
+        for k in self._totals:
+            self._totals[k] = 0.0
+            self._counts[k] = 0
 
     def update(self, key: str, value: float, n: int = 1) -> None:
         self._totals[key] = self._totals.get(key, 0.0) + value * n

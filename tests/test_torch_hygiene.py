@@ -51,6 +51,9 @@ def test_import_without_jax():
         "import ebfi_tpu_torch.infer.cli\n"
         "import ebfi_tpu_torch.utils.vis, ebfi_tpu_torch.utils.logger\n"
         "import ebfi_tpu_torch.utils.metrics, ebfi_tpu_torch.utils.checkpoint\n"
+        "import ebfi_tpu_torch.utils.yaml_lite, ebfi_tpu_torch.losses\n"
+        "import ebfi_tpu_torch.train, ebfi_tpu_torch.train.cli, ebfi_tpu_torch.train.trainer\n"
+        "import ebfi_tpu_torch.train.checkpoint, ebfi_tpu_torch.train.exposure_trainer\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'ebfi_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
     )
@@ -91,6 +94,24 @@ def test_cli_needs_a_card_unless_told_cpu(monkeypatch, tmp_path):
         main(argv)
     main(argv + ["--device", "cpu"])  # an empty datalist: only the result files
     assert sorted(os.listdir(tmp_path / "out")) == ["inference_all.yml", "inference_all_step.yml"]
+
+
+def test_train_cli_needs_a_card_unless_told_cpu(monkeypatch, tmp_path):
+    """Training runs on the card by default; with no card it raises rather
+    than train on the CPU."""
+    from ebfi_tpu_torch.train.cli import main
+    from ebfi_tpu_torch.utils.logger import dump_yaml
+    from ebfi_tpu_torch.utils.yaml_lite import load_file
+
+    cfg = load_file(str(ROOT / "configs" / "train_evfi.yml"))
+    cfg["trainer"]["output_path"] = str(tmp_path / "out")
+    path = tmp_path / "cfg.yml"
+    path.write_text(dump_yaml(cfg))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["-c", str(path), "-id", "x"])
+    with pytest.raises(FileNotFoundError):  # past the device check: the datalist is a placeholder
+        main(["-c", str(path), "-id", "x", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
