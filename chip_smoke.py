@@ -43,11 +43,27 @@ seconds elapsed:
    and f32), B2 and B2p (bf16) at the training shapes against autograd through
    their plain versions, and a fused Modification's against the same
    module with the plain version's graph on B3's values; (d) one Adam
-   step of a small model on the card against the CPU.
+   step of a small model on the card against the CPU;
+7. data-parallel training and LPIPS, the ranks started by
+   ``python -m torch.distributed.run`` (each rank is this script with
+   ``--dp-worker SPEC``; it writes its results to JSON files): (a) phase
+   6's two trainings on one NCCL rank, with their ms per iteration beside
+   phase 6's, the ``ebfi::grad_allreduce`` range's device time per update
+   and B1/B3 launches by route; (b) two gloo ranks on the one card (NCCL
+   refuses two ranks on one device): two Adam steps of the shipped model
+   in f32 (B1) and bf16 (B3) against one process on the concatenated
+   batches (the ranks bitwise equal), then the train CLI (rank 0 alone
+   writes checkpoints, both log the same losses); (c) NCCL over every
+   card, where the machine has more than one; (d) LPIPS: phase 5 (b)'s
+   CLI runs carry ``--alexnet_weights`` (a random torchvision-layout
+   backbone) and their ``lpips`` columns must agree, LPIPS's ms per 720p
+   frame pair, and three bf16 steps with ``trainer.loss.perceptual``
+   through ``-m ebfi_tpu_torch.train`` under the launcher.
 
 The line before the last is a JSON object with the kernels' numbers
 (``launches_train``: B1's launches in run (a), validation forwards
-included, and B3's in run (b)); the last line is ``{"ok": true,
+included, and B3's in run (b); ``launches_dp_nccl``: the same in phase 7
+(a)); the last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises and
 the run exits non-zero; without a CUDA card it exits 2 and prints no
 result.
@@ -88,10 +104,11 @@ MODEL_CFG = {  # bench.py / configs/train_evfi.yml
     },
 }
 T0 = time.perf_counter()
+LOG_PREFIX = ""  # a phase-7 rank's "[rank r/n] "
 
 
 def log(msg: str) -> None:
-    print(f"[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
+    print(f"{LOG_PREFIX}[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
 
 
 def card_identity() -> str:
@@ -326,8 +343,10 @@ def breakdown(torch, label, call, top=12, ranges=()):
     their share of the request's wall time, and the device's idle share.
     Fails if the profiler records no device time.  ``ranges`` names
     ``record_function`` ranges whose device time is reported apart: their
-    device-side span where the profiler records one, else the device time
-    of the kernels launched under them (``key_averages``)."""
+    device-side span where the profiler records one, with the time of the
+    kernels inside it, else the device time of the kernels launched under
+    them (``key_averages``).  Returns {range: {"span_ms", "busy_ms"}} of
+    the ranges it found (``span_ms`` None without a span)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -337,18 +356,19 @@ def breakdown(torch, label, call, top=12, ranges=()):
         call()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    per, spans = {}, {}
+    per, spans, kernels = {}, {}, []
     events = prof.events()
     # record_function ranges (the optimizer's, ours) also appear on the
     # device's timeline as spans; they are not kernels
     annotations = set(ranges) | {e.name for e in events if getattr(e, "is_user_annotation", False)}
     for e in events:
         if e.device_type == DeviceType.CUDA and e.name in annotations:
-            spans[e.name] = spans.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            spans.setdefault(e.name, []).append(e.time_range)
         elif e.device_type == DeviceType.CUDA:
             acc = per.setdefault(e.name, [0.0, 0])
             acc[0] += e.time_range.elapsed_us() / 1e3
             acc[1] += 1
+            kernels.append(e.time_range)
     busy_ms = sum(v[0] for v in per.values())
     if busy_ms <= 0:
         raise AssertionError(f"breakdown {label}: torch.profiler recorded no device time")
@@ -360,17 +380,25 @@ def breakdown(torch, label, call, top=12, ranges=()):
         log(f"  {ms:9.3f} ms {100 * ms / wall_ms:5.1f} % of the wall {n:5d} launches  "
             f"{name[:110]}")
     averages = {a.key: a for a in prof.key_averages()} if ranges else {}
+    found = {}
     for r in ranges:
         if r in spans:
-            ms, how = spans[r], "device-side span of the range, first kernel to last, gaps included"
+            span = sum(t.elapsed_us() for t in spans[r]) / 1e3
+            inside = sum(k.elapsed_us() for k in kernels for t in spans[r]
+                         if t.start <= k.start and k.end <= t.end) / 1e3
+            found[r] = {"span_ms": span, "busy_ms": inside}
+            log(f"  range {r}: {span:.3f} ms, {100 * span / wall_ms:.1f} % of the wall "
+                f"(device-side span of the range, first kernel to last, gaps included); its "
+                f"kernels busy {inside:.3f} ms of it")
         elif r in averages:
             a = averages[r]
             ms = getattr(a, "device_time_total", getattr(a, "cuda_time_total", 0.0)) / 1e3
-            how = "device time of the kernels under the range (key_averages)"
+            found[r] = {"span_ms": None, "busy_ms": ms}
+            log(f"  range {r}: {ms:.3f} ms, {100 * ms / wall_ms:.1f} % of the wall (device time "
+                f"of the kernels under the range, key_averages)")
         else:
             log(f"  range {r}: not recorded")
-            continue
-        log(f"  range {r}: {ms:.3f} ms, {100 * ms / wall_ms:.1f} % of the wall ({how})")
+    return found
 
 
 def phase_engine(torch, kern):
@@ -613,7 +641,9 @@ def phase_cli(torch, kern):
         compare_outputs("cli (c) card vs CPU, bf16, 64x96", read_png, runs["cuda"], runs["cpu"],
                         255, 0.02, 0.1)
 
-        # ---- (b) the real entry point in f32, on the card and on the CPU
+        # ---- (b) the real entry point in f32, on the card and on the CPU,
+        # with an LPIPS column (phase 7 (d)) from a random AlexNet backbone file
+        alexnet = write_alexnet(os.path.join(tmp, "alexnet.pth"))
         runs = {}
         for dev in ("cuda", "cpu"):
             o = os.path.join(tmp, f"outm_{dev}")
@@ -624,16 +654,23 @@ def phase_cli(torch, kern):
             proc = subprocess.run(
                 [sys.executable, "-m", "ebfi_tpu_torch.infer", "--model_path", ckpt,
                  "--data_list", datalist, "--output_path", o, *CLI_FLAGS,
-                 "--precision", "f32", *(["--device", "cpu"] if dev == "cpu" else [])],
+                 "--precision", "f32", "--alexnet_weights", alexnet,
+                 *(["--device", "cpu"] if dev == "cpu" else [])],
                 capture_output=True, text=True, timeout=300,
             )
-            log(f"cli (b) python -m ebfi_tpu_torch.infer --precision f32 on {dev}: exit "
-                f"{proc.returncode} in {time.perf_counter() - t0:.1f} s")
+            log(f"cli (b) python -m ebfi_tpu_torch.infer --precision f32 --alexnet_weights on "
+                f"{dev}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
             if proc.returncode != 0:
                 raise AssertionError(f"cli (b) on {dev} failed:\n{proc.stderr[-4000:]}")
             runs[dev] = (restored_pngs(o, small), read_means(os.path.join(o, "inference_all.yml")))
         compare_outputs("cli (b) card vs CPU, f32, 64x96, the shipped model", read_png,
                         runs["cuda"], runs["cpu"], 1, 1.0, 0.01)
+        lp = {dev: runs[dev][1].get("lpips") for dev in runs}
+        ok = None not in lp.values() and abs(lp["cuda"] - lp["cpu"]) <= LPIPS_TOL
+        log(f"check 7 (d) cli (b) lpips column, card vs CPU: {lp['cuda']!r} vs {lp['cpu']!r} "
+            f"(tol {LPIPS_TOL} absolute) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("cli (b): the LPIPS columns of the card and the CPU disagree")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -681,11 +718,17 @@ def train_config(tmp, name, clip, extra):
     return path
 
 
-def steady_step_ms(torch, trainer, steps=STEADY_STEPS):
-    """ms per training iteration of the trainer's own step on batches of
-    its loader, one warm-up, host clock around synchronised steps."""
+def step_batches(trainer, n):
+    """The first n training batches of the trainer's loader, on its device."""
     window = next(trainer._windows(trainer.train_loader))
-    batches = list(trainer._batches_from_window(window))[: steps + 1]
+    return list(trainer._batches_from_window(window))[:n]
+
+
+def steady_step_ms(torch, trainer, steps=STEADY_STEPS, batches=None):
+    """ms per training iteration of the trainer's own step on batches of
+    its loader (``batches``, else fetched), one warm-up, host clock around
+    synchronised steps."""
+    batches = batches or step_batches(trainer, steps + 1)
     trainer.train_step(trainer.state, batches[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -826,7 +869,7 @@ def phase_train(torch, kern):
         f"{8e3 / out['b_ms']:.1f} samples/s, peak {out['b_peak_gib']:.2f} GiB, run wall "
         f"{out['b_wall']:.1f} s; plain backward ms at the training shapes "
         f"{ {k: round(v, 3) for k, v in bwd.items()} }")
-    return out["train_launches"]
+    return out
 
 
 def grad_check(torch, label, fn, plain, args, diff_idx):
@@ -984,6 +1027,370 @@ def phase_train_card_vs_cpu(torch):
         raise AssertionError("train (d): the card and the CPU train step disagree")
 
 
+# ---------------------------------------------------------------- data parallelism
+
+LPIPS_TOL = 1e-4  # card vs CPU, f32 convolutions summed in another order
+DP_TIMEOUT_S = 300  # each launch of ranks
+DP_STEPS = 2  # (b): Adam updates on the concatenated batches
+DP_BATCH, DP_HW = 4, 64  # (b): global batch of the step check, crops
+DP_LR = 1e-4
+
+
+def _range_text(r):
+    span = "no span" if r["span_ms"] is None else f"span {r['span_ms']:.3f} ms"
+    return f"{span}, device busy {r['busy_ms']:.3f} ms"
+
+
+def write_alexnet(path, seed=SEED):
+    """A random AlexNet ``features`` state dict in torchvision's layout, as
+    ``--alexnet_weights`` reads it (no backbone ships with the repository)."""
+    import torch
+
+    from ebfi_tpu_torch.losses.lpips import ALEX_CONVS, ALEX_LAYER_IDS
+
+    g = torch.Generator().manual_seed(seed)
+    sd, cin = {}, 3
+    for lid, (cout, k, _, _) in zip(ALEX_LAYER_IDS, ALEX_CONVS):
+        std = (2.0 / (k * k * cin)) ** 0.5
+        sd[f"features.{lid}.weight"] = torch.randn(cout, cin, k, k, generator=g) * std
+        sd[f"features.{lid}.bias"] = torch.zeros(cout)
+        cin = cout
+    torch.save(sd, path)
+    return path
+
+
+def launch_ranks(label, nproc, args, timeout=DP_TIMEOUT_S):
+    """``python -m torch.distributed.run --standalone --nproc_per_node=nproc
+    args`` from the repository root, its output passed through; the
+    launcher and its ranks are killed at the timeout.  Raises unless it
+    exits 0."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", *args]
+    log(f"{label}: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            start_new_session=True)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        raise AssertionError(f"{label}: the ranks did not finish within {timeout} s")
+    log(f"{label}: exit {rc} in {time.perf_counter() - t0:.1f} s")
+    if rc != 0:
+        raise AssertionError(f"{label}: exit {rc}")
+
+
+def dp_worker(spec_path: str) -> int:
+    """One rank of a phase-7 launch (``chip_smoke.py --dp-worker SPEC``,
+    started by ``torch.distributed.run``): joins the group on the card the
+    spec names (``cuda:LOCAL_RANK`` without one), then (1) with
+    ``step_check``, takes DP_STEPS Adam steps of the shipped model on its
+    share of seeded global batches, through ``make_train_step``, and saves
+    its parameters and losses; (2) runs ``ebfi_tpu_torch.train.cli.main``
+    on each config of the spec, with launch counts zeroed before each run,
+    then times its steady step and profiles one.  Writes its results to
+    the spec's ``out`` (``%d`` = rank)."""
+    import logging
+
+    import torch
+
+    from ebfi_tpu_torch.models import build_model, init_weights
+    from ebfi_tpu_torch.ops import cuda as kern
+    from ebfi_tpu_torch.parallel import (broadcast_module_, local_device, local_shard_info,
+                                         maybe_init_distributed)
+    from ebfi_tpu_torch.train import TrainState, build_optimizer, make_train_step
+    from ebfi_tpu_torch.train import cli as train_cli
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = local_device(spec.get("device", "cuda"))
+    maybe_init_distributed(backend=spec.get("backend"), device=device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    rank, world = local_shard_info()
+    global LOG_PREFIX
+    LOG_PREFIX = f"[rank {rank}/{world}] "
+    res = {"rank": rank, "world": world}
+
+    if spec.get("step_check"):
+        batches = dict(np.load(spec["step_check"]["batches"]))
+        for label, cfg, bf16 in spec["step_check"]["cases"]:
+            model = init_weights(build_model(cfg), SEED, scheme="train").to(device)
+            broadcast_module_(model)
+            updater, _ = build_optimizer(model, {"name": "Adam", "args": {"lr": DP_LR}},
+                                         data_parallel=True)
+            step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None, world=world)
+            state, losses = TrainState(model, updater), []
+            kern.reset_launch_counts()
+            for i in range(DP_STEPS):
+                n = DP_BATCH // world
+                b = {k: torch.from_numpy(batches[f"{k}_{i}"][rank * n:(rank + 1) * n]).to(device)
+                     for k in ("frame", "event", "t", "target")}
+                state, m = step(state, b)
+                losses.append(float(m["train_loss"]))
+            res[label] = {"losses": losses, "launches": kern.launch_counts(),
+                          "routes": kern.route_counts()}
+            torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                       spec["out"] % rank + f".{label}.pt")
+            del model, state, updater
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    for label, argv, steady in spec.get("runs", []):
+        argv = [a % rank if "%d" in a else a for a in argv]  # one output path per rank
+        lines = Lines()
+        logging.getLogger("trainer").addHandler(lines)
+        sync()
+        kern.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv)
+        sync()
+        wall = time.perf_counter() - t0
+        logging.getLogger("trainer").removeHandler(lines)
+        r = {"step": trainer.state.step, "wall": wall, "launches": kern.launch_counts(),
+             "routes": kern.route_counts(), "save_dir": trainer.cp.save_dir,
+             "valid": [ln.split(":")[-1].strip() for ln in lines.lines if "valid_loss" in ln],
+             "train": [ln.split("train_loss: ")[1].split()[0] for ln in lines.lines
+                       if "train_loss: " in ln],
+             "batch": int(trainer.cp["train_dataloader"]["batch_size"]),
+             "n_eval": eval_forwards(trainer, TRAIN_ITERS // 10) if trainer.do_validation else 0}
+        if steady:
+            # the all-reduce's share of the step, in turns within this
+            # process (with, without, without, with): the host's speed
+            # drifts between processes and calls
+            updater, turns = trainer.state.updater, {True: [], False: []}
+            batches = step_batches(trainer, STEADY_STEPS + 1)
+            for on in (True, False, False, True):
+                updater.data_parallel = on
+                ms, batch = steady_step_ms(torch, trainer, batches=batches)
+                turns[on].append(ms)
+            r["ms"], r["ms_without_allreduce"] = (float(np.mean(turns[on])) for on in (True, False))
+            r["ranges"] = breakdown(torch, f"{label}, one step", lambda: trainer.train_step(
+                trainer.state, batch), ranges=("ebfi::grad_allreduce",))
+        res[label] = r
+        del trainer
+    with open(spec["out"] % rank, "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def step_check_batches(path):
+    rng = np.random.default_rng(SEED + 7)
+    arrays = {}
+    for i in range(DP_STEPS):
+        b = {"frame": rng.uniform(0, 1, (DP_BATCH, DP_HW, DP_HW, 3)),
+             "event": rng.uniform(0, 2, (DP_BATCH, DP_HW, DP_HW, 2 * MODEL_CFG["args"]["TB"])),
+             "t": rng.uniform(0, 1, (DP_BATCH, 1)),
+             "target": rng.uniform(0, 1, (DP_BATCH, DP_HW, DP_HW, 3))}
+        arrays.update({f"{k}_{i}": v.astype(np.float32) for k, v in b.items()})
+    np.savez(path, **arrays)
+    return arrays
+
+
+def dp_spec(tmp, name, **spec):
+    path = os.path.join(tmp, f"{name}.json")
+    spec["out"] = os.path.join(tmp, f"{name}.rank%d.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return path
+
+
+def rank_file(spec_path, rank):
+    with open(spec_path) as f:
+        return json.load(f)["out"] % rank
+
+
+def read_ranks(spec_path, nproc):
+    results = []
+    for r in range(nproc):
+        with open(rank_file(spec_path, r)) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_data_parallel(torch, kern, single):
+    """Phase 7: training under ``torch.distributed`` and LPIPS on the card.
+    ``single``: phase 6's numbers from this call."""
+    from ebfi_tpu_torch.data.synth import write_clip_npz
+    from ebfi_tpu_torch.losses import LPIPS, load_lpips_params
+    from ebfi_tpu_torch.models import build_model, init_weights
+    from ebfi_tpu_torch.train import TrainState, build_optimizer, make_train_step
+
+    tmp = tempfile.mkdtemp(prefix="ebfi_chip_dp_")
+    out = {}
+    try:
+        clip = os.path.join(tmp, "clip.npz")
+        frames, h, w = TRAIN_CLIP
+        write_clip_npz(clip, num_frames=frames, H=h, W=w, seed=SEED + 3)
+        worker = ["chip_smoke.py", "--dp-worker"]
+        fast = {"model;args;FastVariants": True, "trainer;precision": "bf16",
+                "trainer;do_validation": False}
+
+        # ---- (a) NCCL, one rank: phase 6's two runs through the launcher
+        cfg_a = train_config(tmp, "dp_f32", clip, {})
+        cfg_b = train_config(tmp, "dp_bf16", clip, fast)
+        spec = dp_spec(tmp, "a", runs=[
+            ["f32", ["-c", cfg_a, "-id", "nccl_f32"], True],
+            ["bf16", ["-c", cfg_b, "-id", "nccl_bf16"], True]])
+        launch_ranks("train 7 (a) NCCL, 1 rank", 1, [*worker, spec])
+        (ra,) = read_ranks(spec, 1)
+        n_eval = ra["f32"]["n_eval"]  # B1 also runs in validation's forwards
+        for label, want, route in (("f32", {"fac": TRAIN_ITERS + n_eval, "mod_fac": 0,
+                                            "mod_fac_shared": 0}, None),
+                                   ("bf16", {"fac": 0, "mod_fac": TRAIN_ITERS,
+                                             "mod_fac_shared": 0}, "wgmma_bf16")):
+            r = ra[label]
+            ar = r["ranges"].get("ebfi::grad_allreduce")
+            ok = (ra["world"] == 1 and r["step"] == TRAIN_ITERS and r["launches"] == want
+                  and ar is not None
+                  and (route is None or r["routes"]["mod_fac"] == {route: TRAIN_ITERS,
+                                                                   "simt_f32": 0}))
+            ms1 = single[f"{'a' if label == 'f32' else 'b'}_ms"]
+            log(f"check train 7 (a) {label} NCCL world 1: {r['step']} steps, launches "
+                f"{r['launches']}, routes {r['routes']}; steady {r['ms']:.2f} ms/iteration, "
+                f"{8e3 / r['ms']:.1f} samples/s; in turns in the same process without the "
+                f"all-reduce {r['ms_without_allreduce']:.2f} ms/iteration (phase 6, one process, "
+                f"no group: {ms1:.2f} ms/iteration, {8e3 / ms1:.1f} samples/s); "
+                f"ebfi::grad_allreduce per update "
+                f"(5 693 543 f32 gradients, 22.8 MB): "
+                f"{'not recorded' if ar is None else _range_text(ar)}; {card_identity()} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"train 7 (a) {label}: the NCCL run did not go as expected")
+            out[f"a_{label}"] = {"ms": r["ms"], "ms_without": r["ms_without_allreduce"],
+                                 "allreduce_ms": ar, "launches": r["launches"]}
+
+        # ---- (b) two gloo ranks on the one card
+        batches = step_check_batches(os.path.join(tmp, "batches.npz"))
+        cases = [["f32", MODEL_CFG, False],
+                 ["bf16", {**MODEL_CFG, "args": {**MODEL_CFG["args"], "FastVariants": True}},
+                  True]]
+        cfg_c = {}
+        for rank in range(2):  # the same config but for its output path
+            cfg_c[rank] = train_config(tmp, f"dp_gloo{rank}", clip, {
+                "trainer;output_path": os.path.join(tmp, f"gloo_out{rank}"),
+                "trainer;iteration_based_train;iterations": 4,
+                "trainer;iteration_based_train;save_period": 2,
+                "trainer;iteration_based_train;valid_step": 2,
+                "trainer;iteration_based_train;train_log_step": 1})
+        spec = dp_spec(tmp, "b", backend="gloo", device="cuda:0",
+                       step_check={"batches": os.path.join(tmp, "batches.npz"), "cases": cases},
+                       runs=[["cli", ["-c", os.path.join(tmp, "dp_gloo%d.yml"), "-id", "gloo",
+                                      "--device", "cuda:0"], False]])
+        launch_ranks("train 7 (b) gloo, 2 ranks on one card", 2, [*worker, spec])
+        rb = read_ranks(spec, 2)
+        for label, cfg, bf16 in cases:
+            got = [torch.load(rank_file(spec, r) + f".{label}.pt", weights_only=True)
+                   for r in range(2)]
+            same = all(torch.equal(got[0][k], got[1][k]) for k in got[0])
+            model = init_weights(build_model(cfg), SEED, scheme="train").cuda()
+            updater, _ = build_optimizer(model, {"name": "Adam", "args": {"lr": DP_LR}})
+            step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None)
+            state, losses = TrainState(model, updater), []
+            for i in range(DP_STEPS):
+                b = {k: torch.from_numpy(batches[f"{k}_{i}"]).cuda()
+                     for k in ("frame", "event", "t", "target")}
+                state, m = step(state, b)
+                losses.append(float(m["train_loss"]))
+            want = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+            p_err = max((got[0][k] - want[k]).abs().max().item() for k in want)
+            rank_mean = np.mean([r[label]["losses"] for r in rb], axis=0)
+            loss_rel = float(np.max(np.abs(rank_mean - losses) / np.abs(losses)))
+            loss_tol = 1e-2 if bf16 else 1e-4
+            kernel = "mod_fac" if bf16 else "fac"
+            launched = all(r[label]["launches"][kernel] == DP_STEPS for r in rb)
+            ok = (same and p_err <= 2 * DP_LR * DP_STEPS * 1.001 and loss_rel <= loss_tol
+                  and launched)
+            log(f"check train 7 (b) {label}: {DP_STEPS} Adam steps of the shipped model on 2 gloo "
+                f"ranks ({DP_BATCH // 2} of {DP_BATCH} {DP_HW}x{DP_HW} samples each, {kernel} "
+                f"launches per rank {[r[label]['launches'][kernel] for r in rb]}) against one "
+                f"process on the whole batches: ranks bitwise equal {same}; parameters max abs "
+                f"diff {p_err:.2e} (tol 2*lr*steps = {2 * DP_LR * DP_STEPS:.0e}); mean of the "
+                f"ranks' losses vs the process's: max rel {loss_rel:.1e} (tol {loss_tol:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"train 7 (b) {label}: the ranks do not step as one process")
+            del model, state, updater
+        runs = [r["cli"] for r in rb]
+        written = [sorted(os.listdir(r["save_dir"])) for r in runs]
+        ok = (runs[0]["step"] == runs[1]["step"] == 4 and written[1] == []
+              and {"checkpoint-iteration2.pt", "checkpoint-iteration4.pt"} <= set(written[0])
+              and len(runs[0]["valid"]) == 2 and runs[0]["valid"] == runs[1]["valid"]
+              and runs[0]["train"] == runs[1]["train"] and runs[0]["batch"] == 8)
+        log(f"check train 7 (b) train CLI on 2 gloo ranks: steps {[r['step'] for r in runs]}, "
+            f"rank 0 wrote {written[0]}, rank 1 wrote {written[1]}; valid_loss logged "
+            f"{runs[0]['valid']} / {runs[1]['valid']}; train_loss logged equal "
+            f"{runs[0]['train'] == runs[1]['train']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("train 7 (b): the 2-rank CLI run did not go as expected")
+
+        # ---- (c) NCCL over every card
+        cards = torch.cuda.device_count()
+        if cards > 1:
+            many = os.path.join(tmp, "train_all.txt")  # one batch of 8 windows per card
+            with open(many, "w") as f:
+                f.write((clip + "\n") * 8 * cards)
+            cfg_n = train_config(tmp, "dp_all", clip, {"train_dataloader;batch_size": 8 * cards,
+                                                       "train_dataloader;path_to_datalist_txt": many})
+            spec = dp_spec(tmp, "c", runs=[["f32", ["-c", cfg_n, "-id", "nccl_all"], True]])
+            launch_ranks(f"train 7 (c) NCCL, {cards} ranks", cards, [*worker, spec])
+            rc = read_ranks(spec, cards)
+            ms = max(r["f32"]["ms"] for r in rc)
+            log(f"train 7 (c) f32 on {cards} cards, 8 samples per card: {ms:.2f} ms/iteration, "
+                f"{8 * cards * 1e3 / ms:.1f} samples/s summed over the cards (one card, phase 6: "
+                f"{8e3 / single['a_ms']:.1f}); {card_identity()}")
+        else:
+            log("train 7 (c) NCCL over every card: not run, this machine has 1 card "
+                "(torch.cuda.device_count() == 1)")
+
+        # ---- (d) LPIPS: 720p on the card, and the perceptual term in training
+        lp = LPIPS(load_lpips_params(backbone_path=write_alexnet(os.path.join(tmp, "a.pth"))))
+        lp = lp.cuda()
+        rng = np.random.default_rng(SEED + 8)
+        pair = [torch.from_numpy(rng.uniform(0, 1, (1, H, W, 3)).astype(np.float32)).cuda()
+                for _ in range(2)]
+        with torch.no_grad():
+            ms = cuda_ms(lambda: lp(*pair), reps=5)
+        out["lpips_ms"] = ms
+        log(f"LPIPS f32 on the card, one 720x1280 frame pair: {ms:.3f} ms (CUDA events, mean "
+            f"of 5 after a warm-up); {card_identity()}")
+        cfg_p = train_config(tmp, "perceptual", clip, {
+            **fast, "trainer;iteration_based_train;iterations": 3,
+            "trainer;iteration_based_train;save_period": 3,
+            "trainer;iteration_based_train;train_log_step": 1,
+            "trainer;loss;perceptual;enabled": True,
+            "trainer;loss;perceptual;alexnet_weights": os.path.join(tmp, "a.pth")})
+        launch_ranks("train 7 (d) bf16 FastVariants with trainer.loss.perceptual, "
+                     "NCCL 1 rank", 1, ["-m", "ebfi_tpu_torch.train", "-c", cfg_p, "-id", "lp"])
+        ckpt = os.path.join(tmp, "out", "models", "EVFIAutoEx", "lp", "checkpoint-iteration3.pt")
+        ok = os.path.exists(ckpt)
+        log(f"check train 7 (d) perceptual: 3 steps, {os.path.basename(ckpt)} written {ok} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("train 7 (d): the perceptual run wrote no checkpoint")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"data-parallel summary on {card_identity()}: (a) NCCL 1 rank f32 "
+        f"{out['a_f32']['ms']:.2f} ms/iteration ({out['a_f32']['ms_without']:.2f} without the "
+        f"all-reduce, in turns), bf16 {out['a_bf16']['ms']:.2f} "
+        f"({out['a_bf16']['ms_without']:.2f}) (phase 6: {single['a_ms']:.2f}, "
+        f"{single['b_ms']:.2f}); grad all-reduce per update "
+        f"f32 {_range_text(out['a_f32']['allreduce_ms'])}, bf16 "
+        f"{_range_text(out['a_bf16']['allreduce_ms'])}; LPIPS {out['lpips_ms']:.3f} ms per "
+        "720p pair")
+    return {"B1_fac": out["a_f32"]["launches"]["fac"],
+            "B3_mod_fac": out["a_bf16"]["launches"]["mod_fac"]}
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -1005,6 +1412,8 @@ def ptxas_summary(build_log: str):
 
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    if sys.argv[1:2] == ["--dp-worker"]:  # one rank of a phase-7 launch
+        return dp_worker(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -1035,7 +1444,10 @@ def main() -> int:
     results = phase_kernels(torch, kern)
     launches, routes = phase_engine(torch, kern)
     phase_cli(torch, kern)
-    train_launches = phase_train(torch, kern)
+    single = phase_train(torch, kern)
+    train_launches = single["train_launches"]
+    torch.cuda.empty_cache()  # room for the ranks' processes
+    dp_launches = phase_data_parallel(torch, kern, single)
     kernels = []
     for name, r in results.items():
         kernels.append({
@@ -1045,6 +1457,7 @@ def main() -> int:
             "library_ms": r["library_ms"], "bank_conv_cudnn_ms": r["bank_conv_cudnn_ms"],
             "launches_by_route": routes.get(name), "dtype": r["dtype"], "shape": r["shape"],
             "launches_train": train_launches.get(name),
+            "launches_dp_nccl": dp_launches.get(name),
         })
     faulthandler.cancel_dump_traceback_later()
     print(identity, flush=True)

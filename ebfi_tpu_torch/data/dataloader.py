@@ -1,6 +1,5 @@
 """Loader over concatenated clip datasets (port of
-``ebfi_tpu/data/dataloader.py`` for one shard: no sharding across
-processes; the trainer does the device prefetch).
+``ebfi_tpu/data/dataloader.py``; the trainer does the device prefetch).
 
 Items are assembled by a thread pool in the calling process or, with
 ``num_workers > 0``, by worker processes started with ``spawn`` (the
@@ -11,6 +10,15 @@ python ``random`` (the reference loader's per-item ``random.randint``),
 for the items of the epoch's batches only.  ``shuffle`` permutes the
 items with ``random.Random(seed + epoch)`` (``set_epoch``), and
 ``drop_last`` drops a short last batch, as the JAX loader does.
+
+Data parallelism: shard ``shard_index`` of ``num_shards`` takes
+``order[shard_index::num_shards]`` of the epoch's order, as the JAX
+loader does, cut to the smallest shard's length (``len(order) //
+num_shards`` items), as ``DistributedSampler(drop_last=True)`` does.
+Every shard then yields the same number of batches of the same sizes:
+a rank that took one more step than the others would wait for them in
+its next collective forever.  (The JAX loader keeps the uneven tail, and
+its multi-process run is not defined there.)
 """
 from __future__ import annotations
 
@@ -56,6 +64,8 @@ class EBFIDataLoader:
       sources: datalist txt path, a single .npz path, or a list of .npz paths.
       dataset_config: per-dataset config dict (see NpzClipDataset).
       batch_size, shuffle, drop_last: usual semantics.
+      shard_index/num_shards: this process's shard of every epoch (see
+        the module docstring).
       real_data: use the real-blur reader.
       seed: shuffle base seed, combined with the epoch (``set_epoch``).
       num_threads: item threads of this process (when num_workers is 0).
@@ -64,7 +74,10 @@ class EBFIDataLoader:
 
     def __init__(self, sources, dataset_config: dict, batch_size: int = 1,
                  real_data: bool = False, num_workers: int = 0, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0, num_threads: int = FETCH_THREADS):
+                 drop_last: bool = False, seed: int = 0, num_threads: int = FETCH_THREADS,
+                 shard_index: int = 0, num_shards: int = 1):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} is not in [0, {num_shards})")
         if isinstance(sources, str):
             paths = [sources] if sources.endswith(".npz") else read_datalist(sources)
         else:
@@ -80,27 +93,32 @@ class EBFIDataLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.epoch = 0
+        self.shard_index = shard_index
+        self.num_shards = num_shards
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
-    def _order(self) -> List[int]:
+    def _shard_order(self) -> List[int]:
+        """This shard's items of the epoch, in order (the JAX loader's
+        ``_shard_order``, cut to the smallest shard's length)."""
         order = list(range(len(self.index)))
         if self.shuffle:
             random.Random(self.seed + self.epoch).shuffle(order)
-        return order
+        return order[self.shard_index::self.num_shards][: len(order) // self.num_shards]
 
     def __len__(self) -> int:
+        n = len(self.index) // self.num_shards
         if self.drop_last:
-            return len(self.index) // self.batch_size
-        return (len(self.index) + self.batch_size - 1) // self.batch_size
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         """The epoch's batches.  Items are fetched by the pool at most one
         more than it has workers (or a batch) ahead of the batch being
         assembled, which bounds host memory (a 720p window is ~0.6 GB)."""
         bs = self.batch_size
-        order = self._order()
+        order = self._shard_order()
         order = order[: len(self) * bs]  # drop_last drops the short tail
         batches = [list(range(b, min(b + bs, len(order)))) for b in range(0, len(order), bs)]
         # drawn here, in the calling thread and in item order, so that

@@ -15,6 +15,11 @@ reference-format ``.pth``.  Per clip it writes
 and aggregates ``inference_all.yml`` / ``inference_all_step.yml`` with
 per-metric, per-clip breakdowns, means and per-step PSNR lists.
 
+``--lpips_weights``/``--alexnet_weights`` add an ``lpips`` column
+(``ebfi_tpu_torch.losses.LPIPS``, on the engine's device) where a backbone
+file is given; without one the backbone would be random features, so the
+CLI warns and leaves the metric out, as the JAX CLI does.
+
 The model runs in :class:`~ebfi_tpu_torch.infer.InferenceEngine` on the
 card (``--device cuda``, the default; without a card it raises) or on the
 CPU when asked (``--device cpu``).  The loop is a one-deep software
@@ -25,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures as cf
+import logging
 import os
 import time
 from collections import defaultdict
@@ -33,6 +39,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..data.dataloader import EBFIDataLoader, read_datalist
+from ..losses import LPIPS, load_lpips_params
 from ..utils.logger import YamlResultLogger
 from ..utils.metrics import MetricTracker, psnr_metric, ssim_metric
 from ..utils.vis import save_event_cnt, save_frame
@@ -106,9 +113,9 @@ def get_flags(argv=None):
                         "blur synthesis, event encoding); 0 = threads in this process")
     p.add_argument("--precision", type=str, default="f32", choices=["f32", "bf16"])
     p.add_argument("--lpips_weights", type=str, default=None,
-                   help="LPIPS is not ported yet: giving this raises")
+                   help="path to LPIPS linear-head .pth (optional)")
     p.add_argument("--alexnet_weights", type=str, default=None,
-                   help="LPIPS is not ported yet: giving this raises")
+                   help="path to torchvision alexnet state_dict (optional)")
     return p.parse_args(argv)
 
 
@@ -217,6 +224,7 @@ def infer_clip(
     img_path: str,
     logger: YamlResultLogger,
     num_workers: int = 0,
+    lpips: Optional[LPIPS] = None,
 ) -> Dict:
     """Per-clip loop: windows from the fetch plane, one engine call per
     blurry frame, metrics and PNGs of the previous frame while the device
@@ -224,8 +232,8 @@ def infer_clip(
     per blurry frame: fetch_ms (host time waiting for its window, shared
     among the window's frames), device_ms, sync_ms (host waiting for its
     result), emit_ms (metrics and PNG submits), metrics_ms (the part of
-    emit_ms in MSE, PSNR and SSIM) and wall_ms (since the previous frame
-    was emitted).  The PNG writes finish on background threads after the
+    emit_ms in MSE, PSNR, SSIM and, with ``lpips``, LPIPS) and wall_ms
+    (since the previous frame was emitted).  The PNG writes finish on background threads after the
     last frame's emit."""
     logger.log_dict(dataloader_config, "eval_datasetloader_config")
     loader = EBFIDataLoader(
@@ -242,7 +250,8 @@ def infer_clip(
     for p in (blurry_path, event_path, gt_path, restored_path):
         os.makedirs(p, exist_ok=False)
 
-    track = MetricTracker(["mse", "psnr", "ssim"])
+    # a metric that is never computed would read as 0.0 in the result files
+    track = MetricTracker(["mse", "psnr", "ssim"] + (["lpips"] if lpips is not None else []))
     psnr_steps: List[float] = []
     timings: List[dict] = []
     writer = _AsyncWriter()
@@ -270,6 +279,8 @@ def infer_clip(
                     track.update("psnr", psnr_val)
                     track.update("mse", float(np.mean((pred - gt) ** 2)))
                     track.update("ssim", ssim_metric(pred_chw, gt_chw))
+                    if lpips is not None:
+                        track.update("lpips", lpips_value(lpips, np.clip(pred, 0, 1), gt))
                     psnr_steps.append(psnr_val)
                     metrics_s += time.perf_counter() - tm
                 writer.submit(
@@ -353,6 +364,35 @@ def infer_clip(
     return {"result": result, "result_step": {"psnr": psnr_steps}, "timings": timings}
 
 
+def lpips_value(lpips: LPIPS, pred: np.ndarray, gt: np.ndarray) -> float:
+    """Mean LPIPS of host images (B, H, W, 3) in [0, 1], computed on the
+    module's device."""
+    import torch
+
+    device = lpips.shift.device
+    with torch.no_grad():
+        d = lpips(torch.from_numpy(np.ascontiguousarray(pred, np.float32)).to(device),
+                  torch.from_numpy(np.ascontiguousarray(gt, np.float32)).to(device))
+    return float(d.mean())
+
+
+def load_lpips(flags) -> Optional[LPIPS]:
+    """The LPIPS module the flags ask for, on the CPU; None without the
+    flags, or with a warning when no backbone file is given: its values
+    would not be comparable with published LPIPS numbers."""
+    if not (flags.lpips_weights or flags.alexnet_weights):
+        return None
+    lpips = LPIPS(load_lpips_params(flags.lpips_weights, flags.alexnet_weights))
+    if not lpips.comparable:
+        logging.getLogger(__name__).warning(
+            "LPIPS requested without --alexnet_weights: the backbone would be random features, "
+            "so LPIPS is omitted from result files. Provide a torchvision alexnet state_dict "
+            "to enable it."
+        )
+        return None
+    return lpips
+
+
 def main(argv=None) -> dict:
     """Run the CLI; returns what it wrote to ``inference_all.yml`` (the
     per-clip breakdown and the means), the per-step PSNR means, and the
@@ -366,11 +406,7 @@ def main(argv=None) -> dict:
     np.random.seed(123)
 
     flags = get_flags(argv)
-    if flags.lpips_weights or flags.alexnet_weights:
-        raise NotImplementedError(
-            "LPIPS is not ported to ebfi_tpu_torch yet (ROADMAP.md, queue A3): run without "
-            "--lpips_weights/--alexnet_weights, or use python -m ebfi_tpu.infer"
-        )
+    lpips = load_lpips(flags)
     cfg = apply_flag_overrides(default_dataloader_config(), flags)
     os.makedirs(flags.output_path, exist_ok=True)
     if flags.precision == "f32":
@@ -381,6 +417,8 @@ def main(argv=None) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = False
 
     model, engine = load_model(flags.model_path, precision=flags.precision, device=flags.device)
+    if lpips is not None and engine is not None:
+        lpips.to(engine.device)  # LPIPS runs where the model does
     data_list = read_datalist(flags.data_list)
 
     logger_all = YamlResultLogger(os.path.join(flags.output_path, "inference_all.yml"))
@@ -396,7 +434,7 @@ def main(argv=None) -> dict:
         with YamlResultLogger(os.path.join(root, "inference.yml")) as logger:
             logger.log_info(f"inference [{flags.model_path}] on {data_path}")
             r = infer_clip(cfg, data_path, engine, flags.real_blur, img_path, logger,
-                           num_workers=flags.workers)
+                           num_workers=flags.workers, lpips=lpips)
         r["data_name"] = data_name
         results.append(r)
 

@@ -1,6 +1,6 @@
 """Model family of the port (standard paths of ``ebfi_tpu.models``)."""
 from .control import ResidualControl
-from .convert import params_from_jax, params_from_reference
+from .convert import lpips_params_from_jax, params_from_jax, params_from_reference
 from .evfi import EVFIAutoEx
 from .exposure import ExposureDecision
 from .factory import build_model, init_weights
@@ -19,5 +19,6 @@ __all__ = [
     "build_model",
     "init_weights",
     "params_from_jax",
+    "lpips_params_from_jax",
     "params_from_reference",
 ]

@@ -11,6 +11,8 @@ transposed 3D conv kernels, stored (kd, kh, kw, O, I) -> torch's
 (S, 3, 3, I, O) -> (S, O, I, 3, 3); GroupNorm ``scale`` -> ``weight``.
 Module names are the flax names, with ``Conv_0``/``Conv3D_0`` -> ``conv``.
 
+``lpips_params_from_jax`` does the same for the LPIPS weights.
+
 ``params_from_reference`` maps a reference EVFIAutoEx ``state_dict``
 (module names of the reference's ``model_singleframe.py``, as in a ``.pth``
 it trained) onto the same ``state_dict``: its name mapping is this
@@ -59,6 +61,21 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         name = ".".join(_RENAME.get(p, p) for p in path)
         sd[name] = torch.tensor(arr)
     return sd
+
+
+def lpips_params_from_jax(params: Mapping) -> dict:
+    """The JAX package's LPIPS weights (``ebfi_tpu.losses.load_lpips_params``,
+    numpy or jax leaves) -> the port's (``ebfi_tpu_torch.losses.LPIPS``):
+    conv kernels HWIO -> OIHW, biases and heads as they are, the
+    ``_real_backbone`` flag kept."""
+    out = {}
+    for name, leaf in params.items():
+        if name == "_real_backbone":
+            out[name] = bool(leaf)
+            continue
+        arr = np.asarray(leaf, dtype=np.float32)
+        out[name] = torch.tensor(arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr)
+    return out
 
 
 # ---------------------------------------------------------------------- reference

@@ -29,6 +29,17 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def on_device(device: torch.device):
+    """Context that makes ``device`` the CUDA runtime's current device.  The
+    C entry points launch their kernels, and set their attributes, on the
+    current device, while the stream they are given belongs to the
+    tensors' device: every launch runs under this guard, or a launch for
+    any card but the current one (every rank but a node's first, or
+    ``--device cuda:1``) fails.  The plain-recompute backward runs PyTorch
+    ops alone, which follow their tensors' device, and needs no guard."""
+    return torch.cuda.device(device)
+
+
 def needs_grad(*tensors: torch.Tensor) -> bool:
     """Whether a call on these tensors records autograd: outside
     ``no_grad``/``inference_mode``, with some input requiring grad.  Calls

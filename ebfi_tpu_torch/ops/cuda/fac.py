@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..kernel_conv2d import kernel_conv2d
-from ._common import DTYPE_CODES, check_inputs, needs_grad, plain_vjp, stream_handle
+from ._common import DTYPE_CODES, check_inputs, needs_grad, on_device, plain_vjp, stream_handle
 from .build import check, load_library
 
 
@@ -39,10 +39,11 @@ def _launch(x: torch.Tensor, kernel: torch.Tensor, kernel_size: int) -> torch.Te
     check_inputs("kernel_conv2d_cuda", {"x": x, "kernel": kernel}, x.dtype)
     out = torch.empty_like(x)
     lib = load_library()
-    err = lib.ebfi_fac_forward(
-        x.data_ptr(), kernel.data_ptr(), out.data_ptr(), B, H, W, C, K,
-        DTYPE_CODES[x.dtype], stream_handle(x.device),
-    )
+    with on_device(x.device):
+        err = lib.ebfi_fac_forward(
+            x.data_ptr(), kernel.data_ptr(), out.data_ptr(), B, H, W, C, K,
+            DTYPE_CODES[x.dtype], stream_handle(x.device),
+        )
     check(lib, err, "ebfi_fac_forward")
     kernel_conv2d_cuda.launches += 1
     return out

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernel_conv2d import kernel_conv2d
-from ._common import check_inputs, needs_grad, plain_vjp, stream_handle
+from ._common import check_inputs, needs_grad, on_device, plain_vjp, stream_handle
 from .build import check, load_library
 
 KERNEL_CHANNELS = 64  # the CUDA kernels' channel tile: C must equal it
@@ -168,24 +168,25 @@ def _launch_fused(ev, ff, wk, bk, kernel_size: int) -> torch.Tensor:
     b32 = bk.float().contiguous()
     out = torch.empty_like(ev)
     lib = load_library()
-    if route == "wgmma_bf16":
-        wp = pack_bank_weight(wk.to(ev.dtype))
-        check_inputs(what, {"ev": ev, "ff": ff, "wk": wp}, ev.dtype)
-        check_inputs(what, {"bk": b32}, torch.float32)
-        err = lib.ebfi_mod_fac_fused_wgmma(
-            ev.data_ptr(), ff.data_ptr(), wp.data_ptr(), b32.data_ptr(), out.data_ptr(),
-            B, H, W, C, K, stream_handle(ev.device),
-        )
-        check(lib, err, "ebfi_mod_fac_fused_wgmma")
-    else:
-        w2 = wk.to(ev.dtype).reshape(9 * 2 * C, K * K * C).contiguous()
-        check_inputs(what, {"ev": ev, "ff": ff, "wk": w2}, ev.dtype)
-        check_inputs(what, {"bk": b32}, torch.float32)
-        err = lib.ebfi_mod_fac_fused(
-            ev.data_ptr(), ff.data_ptr(), w2.data_ptr(), b32.data_ptr(), out.data_ptr(),
-            B, H, W, C, K, stream_handle(ev.device),
-        )
-        check(lib, err, "ebfi_mod_fac_fused")
+    with on_device(ev.device):  # the weight pack and the launch
+        if route == "wgmma_bf16":
+            wp = pack_bank_weight(wk.to(ev.dtype))
+            check_inputs(what, {"ev": ev, "ff": ff, "wk": wp}, ev.dtype)
+            check_inputs(what, {"bk": b32}, torch.float32)
+            err = lib.ebfi_mod_fac_fused_wgmma(
+                ev.data_ptr(), ff.data_ptr(), wp.data_ptr(), b32.data_ptr(), out.data_ptr(),
+                B, H, W, C, K, stream_handle(ev.device),
+            )
+            check(lib, err, "ebfi_mod_fac_fused_wgmma")
+        else:
+            w2 = wk.to(ev.dtype).reshape(9 * 2 * C, K * K * C).contiguous()
+            check_inputs(what, {"ev": ev, "ff": ff, "wk": w2}, ev.dtype)
+            check_inputs(what, {"bk": b32}, torch.float32)
+            err = lib.ebfi_mod_fac_fused(
+                ev.data_ptr(), ff.data_ptr(), w2.data_ptr(), b32.data_ptr(), out.data_ptr(),
+                B, H, W, C, K, stream_handle(ev.device),
+            )
+            check(lib, err, "ebfi_mod_fac_fused")
     _count(modification_fac_fused, route)
     return out
 
@@ -245,32 +246,33 @@ def _launch_shared(ev, ff, wk, bk, kernel_size: int, packed_rows2: bool) -> torc
     shape = (BN, H // 2, W, 2 * C) if packed_rows2 else (BN, H, W, C)
     out = torch.empty(shape, dtype=ev.dtype, device=ev.device)
     lib = load_library()
-    if route == "wgmma_bf16":
-        wpe = pack_bank_weight(wk[:, :, :C, :].to(ev.dtype))
-        wpf = pack_bank_weight(wk[:, :, C:, :].to(ev.dtype))
-        # the ff half plus bias, tap-major so a tap's slice of a row is contiguous
-        scratch = torch.empty((B, K * K, H, W, C), dtype=ev.dtype, device=ev.device)
-        tensors = {"ev": ev, "ff": ff, "wke": wpe, "wkf": wpf}
-        check_inputs(what, tensors, ev.dtype)
-        check_inputs(what, {"bk": b32}, torch.float32)
-        err = lib.ebfi_mod_fac_shared_wgmma(
-            ev.data_ptr(), ff.data_ptr(), wpe.data_ptr(), wpf.data_ptr(), b32.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), B, N, H, W, C, K, int(packed_rows2),
-            stream_handle(ev.device),
-        )
-        check(lib, err, "ebfi_mod_fac_shared_wgmma")
-    else:
-        wke = wk[:, :, :C, :].to(ev.dtype).reshape(9 * C, K * K * C).contiguous()
-        wkf = wk[:, :, C:, :].to(ev.dtype).reshape(9 * C, K * K * C).contiguous()
-        check_inputs(what, {"ev": ev, "ff": ff, "wke": wke, "wkf": wkf}, ev.dtype)
-        check_inputs(what, {"bk": b32}, torch.float32)
-        scratch = torch.empty((B, H, W, K * K * C), dtype=ev.dtype, device=ev.device)
-        err = lib.ebfi_mod_fac_shared(
-            ev.data_ptr(), ff.data_ptr(), wke.data_ptr(), wkf.data_ptr(), b32.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), B, N, H, W, C, K, int(packed_rows2),
-            stream_handle(ev.device),
-        )
-        check(lib, err, "ebfi_mod_fac_shared")
+    with on_device(ev.device):  # the weight packs and the launch
+        if route == "wgmma_bf16":
+            wpe = pack_bank_weight(wk[:, :, :C, :].to(ev.dtype))
+            wpf = pack_bank_weight(wk[:, :, C:, :].to(ev.dtype))
+            # the ff half plus bias, tap-major so a tap's slice of a row is contiguous
+            scratch = torch.empty((B, K * K, H, W, C), dtype=ev.dtype, device=ev.device)
+            tensors = {"ev": ev, "ff": ff, "wke": wpe, "wkf": wpf}
+            check_inputs(what, tensors, ev.dtype)
+            check_inputs(what, {"bk": b32}, torch.float32)
+            err = lib.ebfi_mod_fac_shared_wgmma(
+                ev.data_ptr(), ff.data_ptr(), wpe.data_ptr(), wpf.data_ptr(), b32.data_ptr(),
+                scratch.data_ptr(), out.data_ptr(), B, N, H, W, C, K, int(packed_rows2),
+                stream_handle(ev.device),
+            )
+            check(lib, err, "ebfi_mod_fac_shared_wgmma")
+        else:
+            wke = wk[:, :, :C, :].to(ev.dtype).reshape(9 * C, K * K * C).contiguous()
+            wkf = wk[:, :, C:, :].to(ev.dtype).reshape(9 * C, K * K * C).contiguous()
+            check_inputs(what, {"ev": ev, "ff": ff, "wke": wke, "wkf": wkf}, ev.dtype)
+            check_inputs(what, {"bk": b32}, torch.float32)
+            scratch = torch.empty((B, H, W, K * K * C), dtype=ev.dtype, device=ev.device)
+            err = lib.ebfi_mod_fac_shared(
+                ev.data_ptr(), ff.data_ptr(), wke.data_ptr(), wkf.data_ptr(), b32.data_ptr(),
+                scratch.data_ptr(), out.data_ptr(), B, N, H, W, C, K, int(packed_rows2),
+                stream_handle(ev.device),
+            )
+            check(lib, err, "ebfi_mod_fac_shared")
     _count(modification_fac_fused_shared, route, packed_rows2)
     return out
 

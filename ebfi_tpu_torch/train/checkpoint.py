@@ -18,6 +18,11 @@ refuses a checkpoint whose model name differs from the configured one,
 and, unless ``reset``, one whose optimizer name differs; ``reset`` keeps
 the weights and drops the optimizer state, the step and the trainer
 state.
+
+Under data parallelism the Trainer calls :func:`save_checkpoint` on the
+primary rank alone, the other ranks waiting at a barrier (``torch.save``
+does not coordinate processes, unlike the JAX package's Orbax), and
+every rank reads the same file on resume.
 """
 from __future__ import annotations
 

@@ -2,6 +2,8 @@
 
     python -m ebfi_tpu_torch.train -c configs/train_evfi.yml -id RUN \
         [-r CKPT] [--reset] [--device cpu]
+    torchrun --standalone --nproc_per_node=N -m ebfi_tpu_torch.train \
+        -c configs/train_evfi.yml -id RUN
 
 Config -> loaders (train, valid) -> model (factory, the JAX training
 init's distributions from the config's seed) -> optimizer (Adam + StepLR
@@ -14,8 +16,20 @@ target follows the config's model name:
   on the real-data loader.
 
 It trains on the card (``--device cuda``, the default; without a card it
-raises) or on the CPU when asked (``--device cpu``).  One device: data
-parallelism (``parallel.data_parallel`` > 1) is not ported yet.
+raises) or on the CPU when asked (``--device cpu``).
+
+Data parallelism, as the reference runs it: one process per card, started
+by a launcher that sets RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT and
+LOCAL_RANK (``torchrun``; see :mod:`ebfi_tpu_torch.parallel`).  Each
+process trains on ``cuda:LOCAL_RANK`` over NCCL (gloo with ``--device
+cpu``), loads ``batch_size // WORLD_SIZE`` items of every global batch
+from its shard of the data, and the optimizer averages the gradients over
+the processes at every update.  The processes draw their parameters from
+the config's seed, and rank 0's (after the pretrained ExposureDecision
+and a resume) are broadcast to the others; data augmentation is seeded
+with ``seed + rank``, as the JAX package seeds each process.
+``parallel.data_parallel``, where the config sets it, must equal the
+launcher's world size.
 """
 from __future__ import annotations
 
@@ -28,6 +42,7 @@ import torch
 
 from ..data.dataloader import EBFIDataLoader
 from ..models import build_model, init_weights
+from ..parallel import broadcast_module_, local_device, local_shard_info, maybe_init_distributed
 from .checkpoint import resume as resume_checkpoint
 from .config import ConfigParser
 from .exposure_step import make_exposure_eval_step, make_exposure_train_step
@@ -45,13 +60,25 @@ def init_seeds(seed: int = 0) -> None:
     torch.manual_seed(seed)
 
 
-def _make_loader(cfg: dict, real_data: bool, seed: int) -> EBFIDataLoader:
+def _make_loader(cfg: dict, shard_index: int, num_shards: int, real_data: bool,
+                 seed: int) -> EBFIDataLoader:
+    # the config's batch_size is global: each process loads its
+    # 1/num_shards of every batch
+    batch_size = cfg.get("batch_size", 1)
+    if batch_size % num_shards != 0:
+        raise ValueError(
+            f"batch_size ({batch_size}) must be divisible by the number of "
+            f"data-loading processes ({num_shards}) — the global batch is "
+            "assembled as num_shards equal per-process slices"
+        )
     return EBFIDataLoader(
         cfg["path_to_datalist_txt"],
         cfg["dataset"],
-        batch_size=cfg.get("batch_size", 1),
+        batch_size=batch_size // num_shards,
         shuffle=cfg.get("shuffle", False),
         drop_last=cfg.get("drop_last", False),
+        shard_index=shard_index,
+        num_shards=num_shards,
         real_data=real_data,
         seed=seed,
         num_threads=cfg.get("num_workers", 2),
@@ -76,22 +103,26 @@ def _device(name: str) -> torch.device:
             "ebfi_tpu_torch.train: no CUDA device is available; pass --device cpu to train "
             "on the CPU"
         )
-    return device
+    return local_device(name)
 
 
 def main(argv=None):
-    cp = ConfigParser.from_args(argv)
+    cp = ConfigParser.from_args(argv, make_dirs=False)
     device = _device(cp.device)
+    distributed = maybe_init_distributed(device=device)
+    rank, world = local_shard_info()
+    cp.setup(primary=rank == 0)
     seed = cp.config.get("seed", 0)
-    init_seeds(seed)
+    init_seeds(seed + rank)
     logger = logging.getLogger("train")
 
     tcfg = cp["trainer"]
-    dp = int((cp.config.get("parallel") or {}).get("data_parallel") or 1)
-    if dp > 1:
-        raise NotImplementedError(
-            "parallel.data_parallel > 1 is not ported to ebfi_tpu_torch yet (ROADMAP.md, queue A, "
-            "A4: DDP/NCCL); train on one device"
+    dp = (cp.config.get("parallel") or {}).get("data_parallel")
+    if dp is not None and int(dp) != world:
+        raise ValueError(
+            f"parallel.data_parallel is {dp}, but {world} process(es) were launched "
+            f"(WORLD_SIZE {world}): start one process per data-parallel rank, e.g. torchrun "
+            f"--nproc_per_node={dp}, or drop parallel.data_parallel"
         )
     check_loss_cfg(tcfg.get("loss"))
     precision = tcfg.get("precision", "f32")
@@ -116,13 +147,20 @@ def main(argv=None):
     model.to(device).train()
 
     train_loader = _make_loader(
-        cp["train_dataloader"],
+        cp["train_dataloader"], rank, world,
         real_data=exposure_only or cp["train_dataloader"].get("real_data", False), seed=seed,
     )
     valid_loader = _make_loader(
-        cp["valid_dataloader"],
+        cp["valid_dataloader"], rank, world,
         real_data=exposure_only or cp["valid_dataloader"].get("real_data", False), seed=seed,
     ) if "valid_dataloader" in cp.config else None
+    if len(train_loader) == 0:  # the training loops would wait for a batch forever
+        raise ValueError(
+            f"the training data holds no batch for rank {rank} of {world}: "
+            f"{len(train_loader.index)} items, {len(train_loader.index) // world} per rank, "
+            f"{train_loader.batch_size} per batch (drop_last "
+            f"{train_loader.drop_last})"
+        )
 
     frozen_ex = bool(margs.get("FrozenEX", margs.get("frozen_ex", False)))
     updater, _ = build_optimizer(
@@ -131,6 +169,7 @@ def main(argv=None):
         lr_change_rate=int(tcfg.get("iteration_based_train", {}).get("lr_change_rate", 1)),
         accumulate_steps=int(tcfg.get("accu_step", 1)),
         freeze_subtree="exposure_decision" if (frozen_ex and not exposure_only) else None,
+        data_parallel=distributed,
     )
     state = TrainState(model, updater, 0)
     if cp.resume:
@@ -141,8 +180,12 @@ def main(argv=None):
             updater.load_state_dict(restored["opt_states"])
         state.step = int(restored["step"] or 0)
         logger.info(f"Resumed from {cp.resume} at step {state.step}")
+    broadcast_module_(model)
+    if distributed:
+        logger.info(f"rank {rank} of {world} on {device}, "
+                    f"{cp['train_dataloader'].get('batch_size', 1) // world} items per batch")
 
-    writer = make_writer(cp.log_dir) if tcfg.get("tensorboard", False) else None
+    writer = make_writer(cp.log_dir) if rank == 0 and tcfg.get("tensorboard", False) else None
 
     if exposure_only:
         fashion = margs.get("BlurryFashion", margs.get("blurry_fashion", "RGBLap"))
@@ -157,8 +200,8 @@ def main(argv=None):
             cp, model, state,
             make_train_step(detail_enabled=bool(detail),
                             compute_dtype=torch.bfloat16 if precision == "bf16" else None,
-                            loss_cfg=tcfg.get("loss")),
-            make_eval_step(),
+                            loss_cfg=tcfg.get("loss"), world=world),
+            make_eval_step(world),
             train_loader, valid_loader, writer=writer, model_name=model_name,
             use_gt_ex=bool(margs.get("UseGTEx", True)), device=device,
         )

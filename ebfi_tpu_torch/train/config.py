@@ -5,7 +5,9 @@ does not depend on PyYAML), applies overrides addressed by ``"a;b;c"`` key
 paths, creates ``<output_path>/models/<experiment>/<run id>`` and
 ``<output_path>/logs/<experiment>/<run id>``, snapshots the resolved
 config as ``config.yml`` in the log directory (``utils/logger.py``'s
-``dump_yaml``), and sets up logging.
+``dump_yaml``), and sets up logging (:meth:`ConfigParser.setup`).  Under
+data parallelism only the primary process writes the snapshot and the
+log file; the others log to the console.
 """
 from __future__ import annotations
 
@@ -31,11 +33,17 @@ class ConfigParser:
         self.save_dir = os.path.join(output, "models", exper, self.run_id)
         self.log_dir = os.path.join(output, "logs", exper, self.run_id)
         if make_dirs:
-            os.makedirs(self.save_dir, exist_ok=True)
-            os.makedirs(self.log_dir, exist_ok=True)
+            self.setup()
+
+    def setup(self, primary: bool = True) -> None:
+        """The run's directories, and, from the primary process, the
+        ``config.yml`` snapshot and the log file."""
+        os.makedirs(self.save_dir, exist_ok=True)
+        os.makedirs(self.log_dir, exist_ok=True)
+        if primary:
             with open(os.path.join(self.log_dir, "config.yml"), "w") as f:
-                f.write(dump_yaml(config))
-            setup_logging(self.log_dir)
+                f.write(dump_yaml(self.config))
+        setup_logging(self.log_dir if primary else None)
 
     @classmethod
     def from_yaml(cls, path: str, run_id=None, resume=None, overrides=None, make_dirs=True):
@@ -45,7 +53,7 @@ class ConfigParser:
         return cls(config, run_id=run_id, resume=resume, make_dirs=make_dirs)
 
     @classmethod
-    def from_args(cls, argv=None, extra_options=()):
+    def from_args(cls, argv=None, extra_options=(), make_dirs=True):
         """CLI: -c/--config, -id/--runid, -r/--resume, --reset, --device,
         plus registered override flags with ';'-separated target paths."""
         p = argparse.ArgumentParser(description="ebfi_tpu_torch trainer")
@@ -54,7 +62,8 @@ class ConfigParser:
         p.add_argument("-r", "--resume", default=None)
         p.add_argument("--reset", action="store_true")
         p.add_argument("--device", default="cuda",
-                       help="'cuda' (the default; raises without a card) or 'cpu'")
+                       help="'cuda' (the default: the card of LOCAL_RANK under a launcher, "
+                            "else card 0; raises without a card), 'cuda:N' or 'cpu'")
         for flags, typ, target in extra_options:
             p.add_argument(*flags, default=None, type=typ, dest=_dest(flags))
         args = p.parse_args(argv)
@@ -64,7 +73,7 @@ class ConfigParser:
             if v is not None:
                 overrides[target] = v
         parser = cls.from_yaml(args.config, run_id=args.runid, resume=args.resume,
-                               overrides=overrides)
+                               overrides=overrides, make_dirs=make_dirs)
         parser.reset = args.reset
         parser.device = args.device
         return parser

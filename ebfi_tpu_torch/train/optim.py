@@ -17,13 +17,17 @@ an optimizer of its own here.  ``amsgrad`` is read and ignored, as there.
 do there: the mean of ``accu_step`` micro-step gradients is applied every
 ``accu_step``-th call, the schedule counts applied updates, and a frozen
 subtree (FrozenEX) is left out of the optimizer, so it gets no update and
-no moments.
+no moments.  Under data parallelism it also averages the gradients over
+the processes once per update, after accumulation (what XLA's all-reduce
+does inside the JAX package's jitted step).
 """
 from __future__ import annotations
 
 from typing import Callable, Iterable, List, Optional, Tuple
 
 import torch
+
+from ..parallel import all_reduce_mean_
 
 
 def _decays_until_below(base_lr: float, gamma: float, lr_min: float) -> int:
@@ -119,13 +123,17 @@ class Updater:
     Call :meth:`step` after each micro-step's ``backward``: it applies an
     update (and advances the schedule) every ``accumulate_steps``-th call
     with the running mean of the micro-steps' gradients, as
-    ``optax.MultiSteps`` does, and clears the gradients."""
+    ``optax.MultiSteps`` does, and clears the gradients.  With
+    ``data_parallel``, the gradients of every parameter it updates (zeros
+    for one that got none, so that every rank reduces the same list) are
+    averaged over the processes right before the update."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, factor: Callable[[int], float],
-                 accumulate_steps: int = 1):
+                 accumulate_steps: int = 1, data_parallel: bool = False):
         self.optimizer = optimizer
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
         self.accumulate_steps = accumulate_steps
+        self.data_parallel = data_parallel
         self.mini_step = 0
         self._acc: List[Optional[torch.Tensor]] = []
 
@@ -155,6 +163,11 @@ class Updater:
                 p.grad = acc.clone()
                 acc.zero_()
             self.mini_step = 0
+        if self.data_parallel:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            all_reduce_mean_([p.grad for p in params])
         self.optimizer.step()
         self.scheduler.step()
         self.optimizer.zero_grad(set_to_none=True)
@@ -183,10 +196,13 @@ def build_optimizer(
     lr_change_rate: int = 1,
     accumulate_steps: int = 1,
     freeze_subtree: Optional[str] = None,
+    data_parallel: bool = False,
 ) -> Tuple[Updater, Callable[[int], float]]:
     """(updater, schedule) over ``model``'s parameters.  Supported names:
     Adam, AdamW, SGD, Adamax, RMSprop.  ``freeze_subtree``: the name of a
-    submodule whose parameters receive no update (FrozenEX)."""
+    submodule whose parameters receive no update (FrozenEX).
+    ``data_parallel``: average the gradients over the process group at
+    every update."""
     args = optimizer_cfg.get("args") or {}
     base_lr = float(args.get("lr", 1e-4))
     if scheduler_cfg is not None:
@@ -196,4 +212,5 @@ def build_optimizer(
         factor = lambda step: 1.0  # noqa: E731
     opt = _torch_optimizer(optimizer_cfg["name"], trainable_params(model, freeze_subtree),
                            base_lr, args)
-    return Updater(opt, factor, accumulate_steps), (lambda step: base_lr * factor(step))
+    return (Updater(opt, factor, accumulate_steps, data_parallel),
+            (lambda step: base_lr * factor(step)))

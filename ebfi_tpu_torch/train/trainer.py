@@ -7,6 +7,16 @@ the steps: :func:`device_prefetch` keeps the next windows' copies in
 flight from pinned host memory (``non_blocking``), the counterpart of the
 JAX package's ``device_prefetch``.  Losses stay on the device and are
 read back only at the logging cadence.
+
+Under data parallelism every rank runs this loop on its shard, in step
+with the others: the logged train loss and the validation loss are
+averaged over the ranks (each rank's loss is its share of the global
+batch's, scaled as ``train_step`` says), so every rank logs the global
+batch's loss and takes the same early-stop and best-checkpoint decisions;
+checkpoints are written by rank 0 alone, the others waiting at a barrier
+(``torch.save`` does not coordinate processes, unlike the JAX package's
+Orbax); the TensorBoard writer, and with it the image logging, exists on
+rank 0 alone.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from ..parallel import all_reduce_mean_, barrier, is_primary
 from ..utils.metrics import MetricTracker
 from .checkpoint import save_checkpoint
 from .train_step import TrainState
@@ -192,10 +203,19 @@ class Trainer:
             self._save(it)
         return stop
 
+    def _rank_mean(self, values: Dict[str, float]) -> Dict[str, float]:
+        """The values averaged over the data-parallel ranks (every rank
+        calls this at the same point)."""
+        if not values or not torch.distributed.is_initialized():
+            return values
+        t = torch.tensor(list(values.values()), dtype=torch.float64, device=self.device)
+        all_reduce_mean_([t], range_name="ebfi::metric_allreduce")
+        return dict(zip(values, t.tolist()))
+
     def _log(self, it: int, metrics):
         if it % self.train_log_step != 0:
             return
-        loss = float(metrics["train_loss"])
+        loss = self._rank_mean({"train_loss": float(metrics["train_loss"])})["train_loss"]
         self.train_metrics.update("train_loss", loss)
         now = time.perf_counter()
         sps = None
@@ -234,7 +254,7 @@ class Trainer:
             for batch in self._batches_from_window(window):
                 m = self.eval_step(self.state.model, batch)
                 self.valid_metrics.update("valid_loss", float(m["valid_loss"]))
-        return self.valid_metrics.result()
+        return self._rank_mean(self.valid_metrics.result())
 
     def _eval_performance(self, val_log: Dict[str, float]):
         """Monitor and early stop: (stop, improved)."""
@@ -259,10 +279,12 @@ class Trainer:
         tag = tag or (f"model_best_until_iteration{it}" if best else f"checkpoint-iteration{it}")
         trainer_state = {"training_mode": self.mode, "iteration": it,
                          "monitor_best": float(self.mnt_best)}
-        save_checkpoint(
-            self.cp.save_dir, tag, self.state.model, self.state.updater.state_dict(), it,
-            self.cp.config, trainer_state, model_name=self.model_name,
-            optimizer_name=self.cp["optimizer"]["name"],
-            scheduler_name=(self.cp.get("lr_scheduler") or {}).get("name"),
-        )
-        self.logger.info(f"Saving checkpoint: {tag}")
+        if is_primary():
+            save_checkpoint(
+                self.cp.save_dir, tag, self.state.model, self.state.updater.state_dict(), it,
+                self.cp.config, trainer_state, model_name=self.model_name,
+                optimizer_name=self.cp["optimizer"]["name"],
+                scheduler_name=(self.cp.get("lr_scheduler") or {}).get("name"),
+            )
+            self.logger.info(f"Saving checkpoint: {tag}")
+        barrier()

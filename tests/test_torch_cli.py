@@ -152,8 +152,11 @@ def test_port_cli_matches_jax_cli(inputs, tmp_path, monkeypatch, case):
 
 
 def test_lpips_flags_raise_naming_the_roadmap_item(inputs, tmp_path):
+    """LPIPS is ported: the flags no longer raise NotImplementedError; the
+    CLI reads the file they name, as the JAX CLI does (its column is held
+    against the JAX CLI's in test_torch_lpips.py)."""
     _, port_ckpt, clips = inputs
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(FileNotFoundError, match="x.pth"):
         port_main(["--model_path", port_ckpt, "--data_list", str(tmp_path / "none.txt"),
                    "--output_path", str(tmp_path / "out"), "--device", "cpu",
                    "--lpips_weights", "x.pth"])

@@ -3,6 +3,7 @@ needs no reader the serving machine lacks, runs on the card unless told
 otherwise, and keeps its build output out of git."""
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -54,6 +55,8 @@ def test_import_without_jax():
         "import ebfi_tpu_torch.utils.yaml_lite, ebfi_tpu_torch.losses\n"
         "import ebfi_tpu_torch.train, ebfi_tpu_torch.train.cli, ebfi_tpu_torch.train.trainer\n"
         "import ebfi_tpu_torch.train.checkpoint, ebfi_tpu_torch.train.exposure_trainer\n"
+        "import ebfi_tpu_torch.parallel, ebfi_tpu_torch.parallel.dist\n"
+        "import ebfi_tpu_torch.losses.lpips, ebfi_tpu_torch.train.__main__\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'ebfi_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
     )
@@ -61,6 +64,35 @@ def test_import_without_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def _code_strings(path: Path):
+    """String constants of a source other than docstrings: the paths and
+    names the code can use."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docstrings.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docstrings:
+            yield node.value
+
+
+@pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_path_into_the_jax_package(path):
+    """No port module names a file or directory of the JAX package: no
+    string in its code has ``ebfi_tpu`` as a path component, so nothing is
+    read from there.  Docstrings and ``file.py:line`` citations (the
+    ``replaces`` field of chip_smoke's kernel line) name the counterparts
+    and are let through."""
+    bad = [v for v in _code_strings(path)
+           if (v == "ebfi_tpu" or re.search(r"(^|[/\\])ebfi_tpu([/\\]|$)", v))
+           and not re.search(r"\.py:\d+", v)]
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
 
 
 def test_engine_needs_a_card_unless_told_cpu(monkeypatch):
