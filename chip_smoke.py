@@ -58,12 +58,25 @@ seconds elapsed:
    CLI runs carry ``--alexnet_weights`` (a random torchvision-layout
    backbone) and their ``lpips`` columns must agree, LPIPS's ms per 720p
    frame pair, and three bf16 steps with ``trainer.loss.perceptual``
-   through ``-m ebfi_tpu_torch.train`` under the launcher.
+   through ``-m ebfi_tpu_torch.train`` under the launcher;
+8. the adversarial term, the flow losses and device event encoding: (a)
+   phase 6's two trainings with ``trainer.loss.adversarial`` (STGAN,
+   weight 0.01) in this process, then under the launcher on one NCCL
+   rank: launches as in phase 6, the discriminator trained, ms per
+   iteration beside phase 6's, and a profile of one step with the
+   ``ebfi::adversarial`` and ``ebfi::disc_grad_allreduce`` ranges; (b)
+   one STGAN step (batch 8, 128x128, f32) and one WGAN_GP discriminator
+   step (the penalty's double backward) card against CPU; (c) two gloo
+   ranks with STGAN on the one card against one process; (d)
+   ``events_to_stack``, ``averaged_iwe``, EventWarping and
+   BrightnessConstancy at 720x1280 with 200 000 events, card against CPU,
+   with their ms on the card.
 
 The line before the last is a JSON object with the kernels' numbers
 (``launches_train``: B1's launches in run (a), validation forwards
 included, and B3's in run (b); ``launches_dp_nccl``: the same in phase 7
-(a)); the last line is ``{"ok": true,
+(a); ``launches_adversarial``: the same in phase 8 (a)'s runs in this
+process); the last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises and
 the run exits non-zero; without a CUDA card it exits 2 and prints no
 result.
@@ -83,7 +96,7 @@ import time
 
 import numpy as np
 
-WATCHDOG_S = 600
+WATCHDOG_S = 1100
 SEED = 0
 H, W, N = 720, 1280, 16  # one request: a 720p frame, its events, 16 timestamps
 REQUESTS = 3
@@ -345,8 +358,10 @@ def breakdown(torch, label, call, top=12, ranges=()):
     ``record_function`` ranges whose device time is reported apart: their
     device-side span where the profiler records one, with the time of the
     kernels inside it, else the device time of the kernels launched under
-    them (``key_averages``).  Returns {range: {"span_ms", "busy_ms"}} of
-    the ranges it found (``span_ms`` None without a span)."""
+    them (``key_averages``).  Returns {range: {"span_ms", "busy_ms",
+    "launches"}} of the ranges it found (``span_ms`` and ``launches`` None
+    without a span), and the step's {"wall_ms", "busy_ms", "launches"}
+    under ``"step"``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -384,20 +399,23 @@ def breakdown(torch, label, call, top=12, ranges=()):
     for r in ranges:
         if r in spans:
             span = sum(t.elapsed_us() for t in spans[r]) / 1e3
-            inside = sum(k.elapsed_us() for k in kernels for t in spans[r]
-                         if t.start <= k.start and k.end <= t.end) / 1e3
-            found[r] = {"span_ms": span, "busy_ms": inside}
+            within = [k for k in kernels
+                      if any(t.start <= k.start and k.end <= t.end for t in spans[r])]
+            inside = sum(k.elapsed_us() for k in within) / 1e3
+            found[r] = {"span_ms": span, "busy_ms": inside, "launches": len(within)}
             log(f"  range {r}: {span:.3f} ms, {100 * span / wall_ms:.1f} % of the wall "
                 f"(device-side span of the range, first kernel to last, gaps included); its "
-                f"kernels busy {inside:.3f} ms of it")
+                f"{len(within)} kernels busy {inside:.3f} ms of it")
         elif r in averages:
             a = averages[r]
             ms = getattr(a, "device_time_total", getattr(a, "cuda_time_total", 0.0)) / 1e3
-            found[r] = {"span_ms": None, "busy_ms": ms}
+            found[r] = {"span_ms": None, "busy_ms": ms, "launches": None}
             log(f"  range {r}: {ms:.3f} ms, {100 * ms / wall_ms:.1f} % of the wall (device time "
                 f"of the kernels under the range, key_averages)")
         else:
             log(f"  range {r}: not recorded")
+    found["step"] = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+                     "launches": sum(v[1] for v in per.values())}
     return found
 
 
@@ -1099,7 +1117,8 @@ def dp_worker(spec_path: str) -> int:
     from ebfi_tpu_torch.ops import cuda as kern
     from ebfi_tpu_torch.parallel import (broadcast_module_, local_device, local_shard_info,
                                          maybe_init_distributed)
-    from ebfi_tpu_torch.train import TrainState, build_optimizer, make_train_step
+    from ebfi_tpu_torch.train import (TrainState, build_adversarial, build_optimizer,
+                                      init_adv_state, make_train_step)
     from ebfi_tpu_torch.train import cli as train_cli
 
     with open(spec_path) as f:
@@ -1116,13 +1135,18 @@ def dp_worker(spec_path: str) -> int:
 
     if spec.get("step_check"):
         batches = dict(np.load(spec["step_check"]["batches"]))
-        for label, cfg, bf16 in spec["step_check"]["cases"]:
+        for label, cfg, bf16, loss_cfg in spec["step_check"]["cases"]:
             model = init_weights(build_model(cfg), SEED, scheme="train").to(device)
             broadcast_module_(model)
             updater, _ = build_optimizer(model, {"name": "Adam", "args": {"lr": DP_LR}},
                                          data_parallel=True)
-            step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None, world=world)
+            step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None, world=world,
+                                   loss_cfg=loss_cfg)
             state, losses = TrainState(model, updater), []
+            if loss_cfg:
+                state.adv_state = adv_state(build_adversarial(loss_cfg, world), device,
+                                            batches["frame_0"].shape[1:3])
+                broadcast_module_(state.adv_state.disc)
             kern.reset_launch_counts()
             for i in range(DP_STEPS):
                 n = DP_BATCH // world
@@ -1132,8 +1156,7 @@ def dp_worker(spec_path: str) -> int:
                 losses.append(float(m["train_loss"]))
             res[label] = {"losses": losses, "launches": kern.launch_counts(),
                           "routes": kern.route_counts()}
-            torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-                       spec["out"] % rank + f".{label}.pt")
+            torch.save(trained_params(state), spec["out"] % rank + f".{label}.pt")
             del model, state, updater
 
     class Lines(logging.Handler):
@@ -1174,7 +1197,7 @@ def dp_worker(spec_path: str) -> int:
                 turns[on].append(ms)
             r["ms"], r["ms_without_allreduce"] = (float(np.mean(turns[on])) for on in (True, False))
             r["ranges"] = breakdown(torch, f"{label}, one step", lambda: trainer.train_step(
-                trainer.state, batch), ranges=("ebfi::grad_allreduce",))
+                trainer.state, batch), ranges=tuple(spec.get("ranges", ("ebfi::grad_allreduce",))))
         res[label] = r
         del trainer
     with open(spec["out"] % rank, "w") as f:
@@ -1215,6 +1238,77 @@ def read_ranks(spec_path, nproc):
         with open(rank_file(spec_path, r)) as f:
             results.append(json.load(f))
     return results
+
+
+def adv_state(adv, device, hw):
+    """A discriminator's state for (H, W) inputs on ``device``, from the
+    CLI's seed (``seed + 1`` of the shipped config's 123)."""
+    import torch
+
+    from ebfi_tpu_torch.train import init_adv_state
+
+    sample = torch.zeros((1, *hw, 3), device=device)
+    return init_adv_state(adv, ADV_SEED, {"target": sample, "frame": sample})
+
+
+def trained_params(state):
+    """The model's parameters and, with the adversarial term, the
+    discriminator's (``disc.`` names), on the CPU."""
+    out = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    if state.adv_state is not None:
+        out.update({"disc." + k: v.detach().cpu()
+                    for k, v in state.adv_state.disc.state_dict().items()})
+    return out
+
+
+def check_ranks_as_one_process(torch, phase, spec, rb, batches, label, cfg, bf16, loss_cfg):
+    """The ranks' parameters after DP_STEPS Adam steps on their shares of
+    the batches, against one process on the whole batches: bitwise equal
+    across the ranks, within 2 * lr per step of the process (the
+    discriminator's Adamax updates too: lr 1e-3, so 2e-3 per step), the
+    mean of the ranks' losses within 1e-4 relative (1e-2 in bf16), and the
+    kernel launched on every step.  Raises otherwise."""
+    from ebfi_tpu_torch.models import build_model, init_weights
+    from ebfi_tpu_torch.train import TrainState, build_adversarial, build_optimizer, make_train_step
+
+    got = [torch.load(rank_file(spec, r) + f".{label}.pt", weights_only=True) for r in range(2)]
+    same = all(torch.equal(got[0][k], got[1][k]) for k in got[0])
+    model = init_weights(build_model(cfg), SEED, scheme="train").cuda()
+    updater, _ = build_optimizer(model, {"name": "Adam", "args": {"lr": DP_LR}})
+    step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None, loss_cfg=loss_cfg)
+    state, losses = TrainState(model, updater), []
+    if loss_cfg:
+        state.adv_state = adv_state(build_adversarial(loss_cfg), "cuda",
+                                    batches["frame_0"].shape[1:3])
+    for i in range(DP_STEPS):
+        b = {k: torch.from_numpy(batches[f"{k}_{i}"]).cuda()
+             for k in ("frame", "event", "t", "target")}
+        state, m = step(state, b)
+        losses.append(float(m["train_loss"]))
+    want = trained_params(state)
+    bound = {k: 2 * (1e-3 if k.startswith("disc.") else DP_LR) * DP_STEPS * 1.001 for k in want}
+    p_err = {k: (got[0][k] - want[k]).abs().max().item() for k in want}
+    worst = max(p_err, key=lambda k: p_err[k] / bound[k])
+    rank_mean = np.mean([r[label]["losses"] for r in rb], axis=0)
+    loss_rel = float(np.max(np.abs(rank_mean - losses) / np.abs(losses)))
+    loss_tol = 1e-2 if bf16 else 1e-4
+    kernel = "mod_fac" if bf16 else "fac"
+    launched = all(r[label]["launches"][kernel] == DP_STEPS for r in rb)
+    ok = (same and set(got[0]) == set(want) and p_err[worst] <= bound[worst]
+          and loss_rel <= loss_tol and launched)
+    log(f"check {phase} {label}: {DP_STEPS} Adam steps of the shipped model"
+        f"{' with ' + str(loss_cfg) if loss_cfg else ''} on 2 gloo ranks ({DP_BATCH // 2} of "
+        f"{DP_BATCH} {DP_HW}x{DP_HW} samples each, {kernel} launches per rank "
+        f"{[r[label]['launches'][kernel] for r in rb]}) against one process on the whole "
+        f"batches: ranks bitwise equal {same} ({len(want)} tensors); parameters max abs diff "
+        f"{max(v for k, v in p_err.items() if not k.startswith('disc.')):.2e} (tol 2*lr*steps = "
+        f"{2 * DP_LR * DP_STEPS:.0e})"
+        + (f", discriminator {max(v for k, v in p_err.items() if k.startswith('disc.')):.2e} "
+           f"(tol {2e-3 * DP_STEPS:.0e})" if loss_cfg else "")
+        + f"; mean of the ranks' losses vs the process's: max rel {loss_rel:.1e} (tol "
+        f"{loss_tol:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{phase} {label}: the ranks do not step as one process")
 
 
 def phase_data_parallel(torch, kern, single):
@@ -1271,9 +1365,9 @@ def phase_data_parallel(torch, kern, single):
 
         # ---- (b) two gloo ranks on the one card
         batches = step_check_batches(os.path.join(tmp, "batches.npz"))
-        cases = [["f32", MODEL_CFG, False],
+        cases = [["f32", MODEL_CFG, False, None],
                  ["bf16", {**MODEL_CFG, "args": {**MODEL_CFG["args"], "FastVariants": True}},
-                  True]]
+                  True, None]]
         cfg_c = {}
         for rank in range(2):  # the same config but for its output path
             cfg_c[rank] = train_config(tmp, f"dp_gloo{rank}", clip, {
@@ -1288,38 +1382,9 @@ def phase_data_parallel(torch, kern, single):
                                       "--device", "cuda:0"], False]])
         launch_ranks("train 7 (b) gloo, 2 ranks on one card", 2, [*worker, spec])
         rb = read_ranks(spec, 2)
-        for label, cfg, bf16 in cases:
-            got = [torch.load(rank_file(spec, r) + f".{label}.pt", weights_only=True)
-                   for r in range(2)]
-            same = all(torch.equal(got[0][k], got[1][k]) for k in got[0])
-            model = init_weights(build_model(cfg), SEED, scheme="train").cuda()
-            updater, _ = build_optimizer(model, {"name": "Adam", "args": {"lr": DP_LR}})
-            step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None)
-            state, losses = TrainState(model, updater), []
-            for i in range(DP_STEPS):
-                b = {k: torch.from_numpy(batches[f"{k}_{i}"]).cuda()
-                     for k in ("frame", "event", "t", "target")}
-                state, m = step(state, b)
-                losses.append(float(m["train_loss"]))
-            want = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-            p_err = max((got[0][k] - want[k]).abs().max().item() for k in want)
-            rank_mean = np.mean([r[label]["losses"] for r in rb], axis=0)
-            loss_rel = float(np.max(np.abs(rank_mean - losses) / np.abs(losses)))
-            loss_tol = 1e-2 if bf16 else 1e-4
-            kernel = "mod_fac" if bf16 else "fac"
-            launched = all(r[label]["launches"][kernel] == DP_STEPS for r in rb)
-            ok = (same and p_err <= 2 * DP_LR * DP_STEPS * 1.001 and loss_rel <= loss_tol
-                  and launched)
-            log(f"check train 7 (b) {label}: {DP_STEPS} Adam steps of the shipped model on 2 gloo "
-                f"ranks ({DP_BATCH // 2} of {DP_BATCH} {DP_HW}x{DP_HW} samples each, {kernel} "
-                f"launches per rank {[r[label]['launches'][kernel] for r in rb]}) against one "
-                f"process on the whole batches: ranks bitwise equal {same}; parameters max abs "
-                f"diff {p_err:.2e} (tol 2*lr*steps = {2 * DP_LR * DP_STEPS:.0e}); mean of the "
-                f"ranks' losses vs the process's: max rel {loss_rel:.1e} (tol {loss_tol:.0e}) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"train 7 (b) {label}: the ranks do not step as one process")
-            del model, state, updater
+        for label, cfg, bf16, loss_cfg in cases:
+            check_ranks_as_one_process(torch, "train 7 (b)", spec, rb, batches, label, cfg, bf16,
+                                       loss_cfg)
         runs = [r["cli"] for r in rb]
         written = [sorted(os.listdir(r["save_dir"])) for r in runs]
         ok = (runs[0]["step"] == runs[1]["step"] == 4 and written[1] == []
@@ -1391,6 +1456,327 @@ def phase_data_parallel(torch, kern, single):
             "B3_mod_fac": out["a_bf16"]["launches"]["mod_fac"]}
 
 
+# ---------------------------------------------------------------------- adversarial
+
+ADV_LOSS = {"enabled": True, "gan_type": "STGAN", "weight": 0.01}
+ADV_SEED = 124  # the train CLI's for the discriminator: the shipped config's seed 123, plus 1
+ADV_RANGES = ("ebfi::adversarial", "ebfi::disc_grad_allreduce", "ebfi::grad_allreduce")
+ADV_HW = 128  # the shipped crops
+ADV_TOL = {"d_loss": 1e-4, "g_loss": 1e-3}  # g_loss after an Adamax update (see card_vs_cpu)
+ENC_EVENTS, ENC_TB = 200_000, 16
+ADV_OVERRIDES = {f"trainer;loss;adversarial;{k}": v for k, v in ADV_LOSS.items()}
+
+
+def disc_moved(torch, disc, hw):
+    """How many of the discriminator's tensors differ from its initial
+    weights (the CLI's seed), and how many it has."""
+    from ebfi_tpu_torch.losses.discriminator import build_discriminator, init_discriminator
+
+    init = init_discriminator(build_discriminator(ADV_LOSS["gan_type"], hw),
+                              torch.Generator().manual_seed(ADV_SEED)).state_dict()
+    return sum(not torch.equal(v.cpu(), init[k]) for k, v in disc.state_dict().items()), len(init)
+
+
+def _rel_close(label, got, want, rtol, atol=0.0):
+    ok = abs(got - want) <= rtol * abs(want) + atol
+    return ok, f"{label} {got:.6e} vs {want:.6e} (tol {rtol:.0e} rel{f' + {atol:.0e}' if atol else ''})"
+
+
+def _rel_l2(a, b):
+    return ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300)).item()
+
+
+def adv_card_vs_cpu(torch):
+    """(b) One train step with the STGAN term, f32, batch 8 at 128x128, on
+    the card and on the CPU from the same weights and batch (the generator
+    a small model whose Modification has the shipped widths, the
+    discriminator at full size); then a WGAN_GP discriminator step with the
+    same penalty weights on both: its double backward runs through cuDNN.
+    The discriminator's first loss comes from equal weights (1e-4
+    relative); its Adamax (WGAN_GP: Adam) updates are about lr * sign(g),
+    so where a gradient is ~0 its sign may differ: parameters within
+    2 * lr, at most 2 % of them further than 1e-6 apart; g_loss, of the
+    updated discriminator, 1e-3 relative; the generator's gradients, which
+    pass back through that discriminator, relative L2 1e-3 over all
+    tensors and 1e-2 in the worst one (on an H100, 2.8e-3 of a
+    tensor's largest gradient where 7.9e-5 of the discriminator's
+    parameters had flipped)."""
+    import copy
+
+    from ebfi_tpu_torch.losses import AdversarialLoss
+    from ebfi_tpu_torch.models import build_model, init_weights
+    from ebfi_tpu_torch.train import TrainState, build_adversarial, build_optimizer, make_train_step
+
+    rng = np.random.default_rng(SEED + 9)
+    Bs, hw, tb = 8, ADV_HW, SMALL_TRAIN_CFG["args"]["TB"]
+    batch = {
+        "frame": rng.uniform(0, 1, (Bs, hw, hw, 3)), "event": rng.uniform(0, 2, (Bs, hw, hw, 2 * tb)),
+        "t": rng.uniform(0, 1, (Bs, 1)), "target": rng.uniform(0, 1, (Bs, hw, hw, 3)),
+    }
+    loss_cfg = {"adversarial": ADV_LOSS}
+    base = init_weights(build_model(SMALL_TRAIN_CFG), SEED, scheme="train")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(base).to(dev)
+        updater, _ = build_optimizer(model, {"name": "Adam", "args": {"lr": 1e-4}})
+        grads = {}
+        for n, p in model.named_parameters():
+            p.register_hook(lambda g, n=n: grads.__setitem__(n, g.detach().cpu()))
+        state = TrainState(model, updater,
+                           adv_state=adv_state(build_adversarial(loss_cfg), dev, (hw, hw)))
+        b = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        _, m = make_train_step(loss_cfg=loss_cfg)(state, b)
+        m = {k: float(v) for k, v in m.items()}
+        res[dev] = (m, grads, {k: v.detach().cpu() for k, v in
+                               state.adv_state.disc.state_dict().items()}, time.perf_counter() - t0)
+    (mg, gg, dg, sg), (mc, gc, dc, sc) = res["cuda"], res["cpu"]
+    checks = [_rel_close("train_loss", mg["train_loss"], mc["train_loss"], 1e-4)]
+    checks += [_rel_close(k, mg[k], mc[k], tol) for k, tol in ADV_TOL.items()]
+    g_err = max(_rel_l2(gg[n], gc[n]) for n in gc)
+    g_all = _rel_l2(torch.cat([gg[n].reshape(-1) for n in gc]),
+                    torch.cat([gc[n].reshape(-1) for n in gc]))
+    d_diff = torch.cat([(dg[k] - dc[k]).abs().reshape(-1) for k in dc])
+    ok = (all(c[0] for c in checks) and g_all <= 1e-3 and g_err <= 1e-2
+          and d_diff.max().item() <= 2e-3 * 1.001 and (d_diff > 1e-6).double().mean().item() <= 2e-2)
+    log(f"check train 8 (b) one STGAN step, card vs CPU, f32, {SMALL_TRAIN_CFG['args']} at "
+        f"B={Bs} {hw}x{hw}: {'; '.join(c[1] for c in checks)}; generator gradients rel L2 "
+        f"{g_all:.1e} in all (tol 1e-3), {g_err:.1e} in the worst tensor (tol 1e-2); "
+        f"discriminator parameters max abs "
+        f"diff {d_diff.max().item():.2e} (tol 2*lr = 2e-3), share > 1e-6 apart "
+        f"{(d_diff > 1e-6).double().mean().item():.2e} (tol 2e-2); the step took {sg:.2f} s on "
+        f"the card (its first), {sc:.2f} s on the CPU {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train 8 (b): the card and the CPU STGAN step disagree")
+
+    # WGAN_GP: the gradient penalty's double backward, same penalty weights
+    adv = AdversarialLoss(hw, "WGAN_GP")
+    fake, real = (torch.from_numpy(rng.uniform(0, 1, (Bs, hw, hw, 3)).astype(np.float32))
+                  for _ in range(2))
+    eps = torch.rand(fake.shape, generator=torch.Generator().manual_seed(SEED))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        state = adv.init(ADV_SEED, fake.to(dev), None)
+        params = list(state.disc.parameters())
+        d0 = adv.d_loss(state.disc, fake.to(dev), real.to(dev), None, eps.to(dev))
+        d_grads = torch.cat([g.reshape(-1).cpu() for g in torch.autograd.grad(d0, params)])
+        f = fake.to(dev).requires_grad_()
+        state, g, d = adv.step(state, f, real.to(dev), eps=[eps.to(dev)])
+        g.backward()
+        res[dev] = (float(g), float(d), d_grads, f.grad.cpu(),
+                    torch.cat([p.detach().cpu().reshape(-1) for p in params]))
+        if dev == "cuda":
+            args = (f.detach(), real.cuda())
+            ms = cuda_ms(lambda: adv.step(state, *args, eps=[eps.cuda()]), reps=3)
+    (gg, dg_, pgg, fg, pg), (gc, dc_, pgc, fc, pc) = res["cuda"], res["cpu"]
+    checks = [_rel_close("d_loss", dg_, dc_, 1e-4, 1e-5), _rel_close("g_loss", gg, gc, 1e-3, 1e-5)]
+    pg_err, f_err = _rel_l2(pgg, pgc), _rel_l2(fg, fc)
+    p_diff = (pg - pc).abs()
+    ok = (all(c[0] for c in checks) and pg_err <= 1e-2 and f_err <= 5e-2
+          and p_diff.max().item() <= 2e-5 * 1.001)
+    log(f"check train 8 (b) WGAN_GP step, card vs CPU, f32, B={Bs} {hw}x{hw}, the same penalty "
+        f"weights: {'; '.join(c[1] for c in checks)}; the discriminator's gradients at its "
+        f"initial weights (the penalty's double backward) rel L2 {pg_err:.1e} (tol 1e-2: "
+        f"cuDNN's f32 algorithms, FFT-based among them, sum otherwise than the CPU's; 9.6e-4 "
+        f"on an H100); after "
+        f"its Adam update (about lr * sign(g)) parameters max abs diff {p_diff.max().item():.2e} "
+        f"(tol 2*lr = 2e-5), and dg_loss/dfake through the updated discriminators rel L2 "
+        f"{f_err:.1e} (tol 5e-2: leaky ReLUs near their kink take the other slope where the two "
+        f"discriminators differ); one discriminator step on the card {ms:.3f} ms (CUDA events, "
+        f"mean of 3) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train 8 (b): the card and the CPU WGAN_GP step disagree")
+    return ms
+
+
+def flow_card_vs_cpu(torch):
+    """(d) The device event encoder, EventWarping and BrightnessConstancy at
+    720x1280 with 200 000 events, card against CPU; ms on the card."""
+    from ebfi_tpu_torch.losses import BrightnessConstancy, EventWarping, averaged_iwe
+    from ebfi_tpu_torch.ops import events_to_channels, events_to_stack
+
+    rng = np.random.default_rng(SEED + 10)
+    n = ENC_EVENTS
+    xs = rng.integers(0, W, n).astype(np.float32)
+    ys = rng.integers(0, H, n).astype(np.float32)
+    ts = np.sort(rng.uniform(0, 1, n)).astype(np.float32)
+    ps = rng.choice([-1.0, 1.0], n).astype(np.float32)
+    cpu_args = [torch.from_numpy(a) for a in (xs, ys, ts, ps)]
+    gpu_args = [a.cuda() for a in cpu_args]
+    want = events_to_stack(*cpu_args, ENC_TB, (H, W))
+    got = events_to_stack(*gpu_args, ENC_TB, (H, W)).cpu()
+    enc_ms = cuda_ms(lambda: events_to_stack(*gpu_args, ENC_TB, (H, W)), reps=10)
+    ok = torch.equal(got, want) and want.sum().item() >= n
+    log(f"check 8 (d) events_to_stack {n} events -> (2, {ENC_TB}, {H}, {W}), card vs CPU: equal "
+        f"{torch.equal(got, want)} (exact: unit weights), {want.sum().item():.0f} counts; "
+        f"{enc_ms:.3f} ms on the card (CUDA events, mean of 10) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("8 (d): events_to_stack differs between the card and the CPU")
+
+    ev = torch.from_numpy(np.stack([ts, ys, xs, ps], axis=-1)[None])
+    pol = torch.from_numpy(np.stack([ps > 0, ps < 0], axis=-1)[None].astype(np.float32))
+    flow = torch.from_numpy((rng.standard_normal((1, H, W, 2)) * 2 / max(H, W)).astype(np.float32))
+    img, prev = (torch.from_numpy(rng.uniform(0, 1, (1, H, W, 1)).astype(np.float32))
+                 for _ in range(2))
+    cnt = events_to_channels(*cpu_args[:2], cpu_args[3], (H, W)).permute(1, 2, 0)[None]
+    warping, bc = EventWarping(), BrightnessConstancy((H, W))
+
+    def warp_loss(f, e, p, *_):
+        return warping([f], e, p, (H, W))
+
+    def bc_loss(f, e, p, i, pv, c):
+        return bc.generative_model(f, i, c, e, p) + bc.temporal_consistency(f, pv, i) \
+            + bc.regularization(i)
+
+    got, want = (averaged_iwe(flow.to(dev), ev.to(dev), pol.to(dev), (H, W)).cpu()
+                 for dev in ("cuda", "cpu"))
+    ok = torch.equal(got, want)
+    log(f"check 8 (d) averaged_iwe at {H}x{W}, {n} events (distinct sources counted with "
+        f"torch.unique), card vs CPU: equal {ok}, {int((got != want).sum())} pixels differ "
+        f"(exact: f64 counts and quotients) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("8 (d): averaged_iwe differs between the card and the CPU")
+    # f32 gradients through bilinear sampling jump where a sample lies within
+    # rounding of a pixel (left against right difference), and an L1 term's
+    # where its argument lies within rounding of 0: f32 lands on either
+    # side on the card and on the CPU (on an H100: 4.2e-3 and 1.5e-3)
+    grad_tol = {"EventWarping": 1e-4, "BrightnessConstancy": 5e-2}
+    times = {}
+    for name, fn in (("EventWarping", warp_loss), ("BrightnessConstancy", bc_loss)):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            leaves = [x.detach().to(dev).requires_grad_() for x in (flow, img)]
+            args = (leaves[0], ev.to(dev), pol.to(dev), leaves[1], prev.to(dev), cnt.to(dev))
+            value = fn(*args)
+            value.backward()
+            res[dev] = (float(value), [x.grad.cpu().clone() if x.grad is not None else None
+                                       for x in leaves])
+            if dev == "cuda":
+                times[name] = cuda_ms(lambda: fn(*args).backward(), reps=3)
+        (vg, gg), (vc, gc) = res["cuda"], res["cpu"]
+        errs = [_rel_l2(a, b) for a, b in zip(gg, gc) if b is not None]
+        ok = abs(vg - vc) <= 1e-4 * abs(vc) and max(errs) <= grad_tol[name]
+        log(f"check 8 (d) {name} at {H}x{W}, {n} events, card vs CPU: value {vg:.6e} vs "
+            f"{vc:.6e} (tol 1e-4 rel); gradients (flow{', image' if len(errs) > 1 else ''}) rel "
+            f"L2 {', '.join(f'{e:.1e}' for e in errs)} (tol {grad_tol[name]:.0e}); forward + backward "
+            f"{times[name]:.3f} ms on the card (CUDA events, mean of 3) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"8 (d): {name} differs between the card and the CPU")
+    return {"events_to_stack_ms": enc_ms, **{f"{k}_ms": v for k, v in times.items()}}
+
+
+def phase_adversarial(torch, kern, single):
+    """Phase 8: the adversarial term (STGAN) in the train CLI, one process
+    and one NCCL rank; card against CPU; two gloo ranks against one
+    process; the flow losses and the event encoder at 720p.  ``single``:
+    phase 6's numbers from this call.  Returns the launches of B1 (f32)
+    and B3 (bf16) in (a)'s in-process runs."""
+    from ebfi_tpu_torch.data.synth import write_clip_npz
+    from ebfi_tpu_torch.train import cli as train_cli
+
+    tmp = tempfile.mkdtemp(prefix="ebfi_chip_adv_")
+    out = {}
+    try:
+        clip = os.path.join(tmp, "clip.npz")
+        frames, h, w = TRAIN_CLIP
+        write_clip_npz(clip, num_frames=frames, H=h, W=w, seed=SEED + 3)
+        fast = {"model;args;FastVariants": True, "trainer;precision": "bf16",
+                "trainer;do_validation": False}
+        cfgs = {"f32": train_config(tmp, "adv_f32", clip, ADV_OVERRIDES),
+                "bf16": train_config(tmp, "adv_bf16", clip, {**fast, **ADV_OVERRIDES})}
+
+        def expected(label, n_eval):
+            if label == "f32":
+                return {"fac": TRAIN_ITERS + n_eval, "mod_fac": 0, "mod_fac_shared": 0}
+            return {"fac": 0, "mod_fac": TRAIN_ITERS, "mod_fac_shared": 0}
+
+        # ---- (a) the train CLI with trainer.loss.adversarial, in this process
+        for label, cfg in cfgs.items():
+            trainer, counts, routes, wall = train_run(torch, kern, f"8 (a) {label} STGAN",
+                                                      train_cli, ["-c", cfg, "-id", f"adv_{label}"])
+            n_eval = eval_forwards(trainer, TRAIN_ITERS // 10) if trainer.do_validation else 0
+            m = trainer.train_metrics
+            moved, total = disc_moved(torch, trainer.state.adv_state.disc, (ADV_HW, ADV_HW))
+            finite = m._counts.get("g_loss", 0) > 0 and all(
+                np.isfinite(m.avg(k)) for k in ("train_loss", "g_loss", "d_loss"))
+            ok = (trainer.state.step == TRAIN_ITERS and counts == expected(label, n_eval)
+                  and (label == "f32" or routes["mod_fac"] == {"wgmma_bf16": TRAIN_ITERS,
+                                                                "simt_f32": 0})
+                  and moved == total and finite)
+            log(f"check train 8 (a) {label} STGAN: {trainer.state.step} steps, launches {counts} "
+                f"(as phase 6), routes {routes}; discriminator tensors moved {moved}/{total}; "
+                f"mean logged train_loss {m.avg('train_loss'):.4e}, g_loss {m.avg('g_loss'):.4e}, "
+                f"d_loss {m.avg('d_loss'):.4e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"train 8 (a) {label}: the STGAN run did not go as expected")
+            ms, batch = steady_step_ms(torch, trainer)
+            ms6 = single["a_ms" if label == "f32" else "b_ms"]
+            log(f"train 8 (a) {label} STGAN steady: {ms:.2f} ms/iteration, {8e3 / ms:.1f} "
+                f"samples/s (phase 6 in this call: {ms6:.2f} ms/iteration, {8e3 / ms6:.1f} "
+                f"samples/s; {100 * (ms / ms6 - 1):+.1f} %); {card_identity()}")
+            r = breakdown(torch, f"train 8 (a) {label} STGAN, one step",
+                          lambda: trainer.train_step(trainer.state, batch), ranges=ADV_RANGES)
+            out[label] = {"ms": ms, "ms6": ms6, "launches": counts, "ranges": r}
+            del trainer, batch
+            torch.cuda.empty_cache()
+
+        # ---- (a) the same under the launcher, one NCCL rank
+        spec = dp_spec(tmp, "adv_nccl", ranges=list(ADV_RANGES), runs=[
+            [label, ["-c", cfg, "-id", f"nccl_adv_{label}"], True] for label, cfg in cfgs.items()])
+        launch_ranks("train 8 (a) STGAN, NCCL, 1 rank", 1, ["chip_smoke.py", "--dp-worker", spec])
+        (ra,) = read_ranks(spec, 1)
+        for label in cfgs:
+            r = ra[label]
+            ar = r["ranges"].get("ebfi::disc_grad_allreduce")
+            ok = (ra["world"] == 1 and r["step"] == TRAIN_ITERS
+                  and r["launches"] == expected(label, r["n_eval"]) and ar is not None)
+            log(f"check train 8 (a) {label} STGAN, NCCL world 1: {r['step']} steps, launches "
+                f"{r['launches']}; steady {r['ms']:.2f} ms/iteration, {8e3 / r['ms']:.1f} "
+                f"samples/s ({r['ms_without_allreduce']:.2f} without the model's all-reduce, in "
+                f"turns); ebfi::disc_grad_allreduce per step: "
+                f"{'not recorded' if ar is None else _range_text(ar)}; {card_identity()} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"train 8 (a) {label}: the NCCL STGAN run failed its checks")
+            out[f"nccl_{label}"] = r
+
+        # ---- (b) card against CPU
+        out["wgan_gp_step_ms"] = adv_card_vs_cpu(torch)
+        torch.cuda.empty_cache()
+
+        # ---- (c) two gloo ranks with STGAN on the one card against one process
+        batches = step_check_batches(os.path.join(tmp, "batches.npz"))
+        case = ["stgan", MODEL_CFG, False, {"adversarial": ADV_LOSS}]
+        spec = dp_spec(tmp, "adv_gloo", backend="gloo", device="cuda:0", step_check={
+            "batches": os.path.join(tmp, "batches.npz"), "cases": [case]})
+        launch_ranks("train 8 (c) STGAN, gloo, 2 ranks on one card", 2,
+                     ["chip_smoke.py", "--dp-worker", spec])
+        check_ranks_as_one_process(torch, "train 8 (c)", spec, read_ranks(spec, 2), batches, *case)
+
+        # ---- (d) flow losses and the event encoder at 720p
+        out.update(flow_card_vs_cpu(torch))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def share(label):
+        r = out[label]["ranges"]
+        adv, step = r.get("ebfi::adversarial"), r["step"]
+        if adv is None or adv["launches"] is None:
+            return "ebfi::adversarial not recorded"
+        return (f"ebfi::adversarial {_range_text(adv)}, {adv['launches']} of the step's "
+                f"{step['launches']} launches, {100 * adv['busy_ms'] / step['busy_ms']:.1f} % of "
+                f"its {step['busy_ms']:.2f} ms device busy")
+
+    log(f"adversarial summary on {card_identity()}: (a) f32 {out['f32']['ms']:.2f} ms/iteration "
+        f"(phase 6 {out['f32']['ms6']:.2f}), bf16 {out['bf16']['ms']:.2f} (phase 6 "
+        f"{out['bf16']['ms6']:.2f}); NCCL 1 rank f32 {out['nccl_f32']['ms']:.2f}, bf16 "
+        f"{out['nccl_bf16']['ms']:.2f}; per step f32: {share('f32')}; bf16: {share('bf16')}; "
+        f"(b) WGAN_GP discriminator step {out['wgan_gp_step_ms']:.3f} ms; (d) events_to_stack "
+        f"{out['events_to_stack_ms']:.3f} ms, EventWarping {out['EventWarping_ms']:.3f} ms, "
+        f"BrightnessConstancy {out['BrightnessConstancy_ms']:.3f} ms")
+    return {"B1_fac": out["f32"]["launches"]["fac"], "B3_mod_fac": out["bf16"]["launches"]["mod_fac"]}
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -1448,6 +1834,8 @@ def main() -> int:
     train_launches = single["train_launches"]
     torch.cuda.empty_cache()  # room for the ranks' processes
     dp_launches = phase_data_parallel(torch, kern, single)
+    torch.cuda.empty_cache()
+    adv_launches = phase_adversarial(torch, kern, single)
     kernels = []
     for name, r in results.items():
         kernels.append({
@@ -1458,6 +1846,7 @@ def main() -> int:
             "launches_by_route": routes.get(name), "dtype": r["dtype"], "shape": r["shape"],
             "launches_train": train_launches.get(name),
             "launches_dp_nccl": dp_launches.get(name),
+            "launches_adversarial": adv_launches.get(name),
         })
     faulthandler.cancel_dump_traceback_later()
     print(identity, flush=True)

@@ -1,6 +1,7 @@
 """Model family of the port (standard paths of ``ebfi_tpu.models``)."""
 from .control import ResidualControl
-from .convert import lpips_params_from_jax, params_from_jax, params_from_reference
+from .convert import (discriminator_params_from_jax, lpips_params_from_jax, params_from_jax,
+                      params_from_reference)
 from .evfi import EVFIAutoEx
 from .exposure import ExposureDecision
 from .factory import build_model, init_weights
@@ -20,5 +21,6 @@ __all__ = [
     "init_weights",
     "params_from_jax",
     "lpips_params_from_jax",
+    "discriminator_params_from_jax",
     "params_from_reference",
 ]

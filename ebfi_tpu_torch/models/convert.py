@@ -11,7 +11,9 @@ transposed 3D conv kernels, stored (kd, kh, kw, O, I) -> torch's
 (S, 3, 3, I, O) -> (S, O, I, 3, 3); GroupNorm ``scale`` -> ``weight``.
 Module names are the flax names, with ``Conv_0``/``Conv3D_0`` -> ``conv``.
 
-``lpips_params_from_jax`` does the same for the LPIPS weights.
+``lpips_params_from_jax`` does the same for the LPIPS weights, and
+``discriminator_params_from_jax`` for the adversarial loss's
+discriminators.
 
 ``params_from_reference`` maps a reference EVFIAutoEx ``state_dict``
 (module names of the reference's ``model_singleframe.py``, as in a ``.pth``
@@ -76,6 +78,27 @@ def lpips_params_from_jax(params: Mapping) -> dict:
         arr = np.asarray(leaf, dtype=np.float32)
         out[name] = torch.tensor(arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr)
     return out
+
+
+_DISC_RENAME = {"Conv_0": "conv", "Dense_0": "dense0", "Dense_1": "dense1", "kernel": "weight"}
+
+
+def discriminator_params_from_jax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """The flax tree of one of the JAX package's discriminators (numpy
+    leaves) -> the state_dict of the port's (``ebfi_tpu_torch.losses.
+    discriminator``) of the same type and input size.  Conv kernels HWIO ->
+    OIHW, DHWIO -> OIDHW; linear kernels (in, out) -> (out, in): both
+    frameworks flatten the ladder's output in NHWC order, so no row
+    permutation is needed; BN ``scale`` and ``bias`` as they are."""
+    if "params" in tree:
+        tree = tree["params"]
+    sd = {}
+    for path, leaf in _flatten(tree):
+        arr = np.asarray(leaf, dtype=dtype)
+        if path[-1] == "kernel":
+            arr = arr.T if arr.ndim == 2 else _to_torch_layout(path, arr)
+        sd[".".join(_DISC_RENAME.get(p, p) for p in path)] = torch.tensor(np.ascontiguousarray(arr))
+    return sd
 
 
 # ---------------------------------------------------------------------- reference

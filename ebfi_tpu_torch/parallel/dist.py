@@ -28,6 +28,7 @@ DEFAULT_ADDR = "localhost"
 DEFAULT_PORT = "12355"
 BUCKET_BYTES = 25 * 2**20  # PyTorch DDP's default bucket cap
 GRAD_RANGE = "ebfi::grad_allreduce"
+DISC_GRAD_RANGE = "ebfi::disc_grad_allreduce"  # the discriminator's, once per its update
 
 
 def launched() -> bool:
@@ -138,6 +139,33 @@ def all_reduce_mean_(tensors: Iterable[torch.Tensor], range_name: str = GRAD_RAN
             torch._foreach_copy_(bucket, [v.view_as(t) for v, t in zip(views, bucket)])
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the ranks, which autograd differentiates: the gradient
+    of each rank's input is the sum over the ranks of their outputs'
+    gradients (the backward is this Function again, so that a double
+    backward goes through it too)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad)
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks, out of place and differentiable
+    (batch statistics over the global batch: the discriminators' BN).
+    Every rank calls it at the same point, forward and backward alike.
+    Without a process group it returns ``x``."""
+    if not dist.is_initialized():
+        return x
+    return _AllReduceSum.apply(x)
+
+
 @torch.no_grad()
 def broadcast_module_(module: torch.nn.Module, src: int = 0) -> None:
     """Overwrite every parameter and buffer of ``module`` with rank
@@ -153,5 +181,5 @@ def spatial_shardings(*args, **kwargs):
     no counterpart in the port yet."""
     raise NotImplementedError(
         "spatial (H-sharded) parallelism is not ported to ebfi_tpu_torch yet (ROADMAP.md, "
-        "queue A, A5)"
+        "queue A, A6)"
     )

@@ -11,7 +11,13 @@ with the lr_min gate, gradient accumulation, FrozenEX) -> train and eval
 steps -> Trainer (iteration or epoch mode, early stop, checkpoints).  The
 target follows the config's model name:
 
-- EVFIAutoEx: the full model, Laplacian + census loss;
+- EVFIAutoEx: the full model, Laplacian + census loss, plus the terms
+  ``trainer.loss`` turns on: ``perceptual`` (LPIPS) and ``adversarial``
+  (a discriminator stepped inside the train step, shaped by the random or
+  center crop, else the dataset's GT resolution, initialised from
+  ``seed + 1`` on the model's device and broadcast from rank 0; it is not
+  in the checkpoints, as in the JAX package, so a resumed run starts it
+  afresh);
 - ExposureDecision: the stage-1 pretrain, MSE against the recorded duty
   on the real-data loader.
 
@@ -48,7 +54,8 @@ from .config import ConfigParser
 from .exposure_step import make_exposure_eval_step, make_exposure_train_step
 from .exposure_trainer import ExposureTrainer
 from .optim import build_optimizer
-from .train_step import TrainState, check_loss_cfg, make_eval_step, make_train_step
+from .train_step import (TrainState, build_adversarial, init_adv_state, make_eval_step,
+                         make_train_step)
 from .trainer import Trainer
 
 
@@ -106,6 +113,18 @@ def _device(name: str) -> torch.device:
     return local_device(name)
 
 
+def _discriminator_hw(loader_cfg: dict, train_loader):
+    """The discriminator's input size: the random or center crop where
+    augmentation crops, else the dataset's GT resolution."""
+    da = loader_cfg["dataset"].get("data_augment") or {}
+    if da.get("enabled"):
+        for k in ("random_crop", "center_crop"):
+            sub = da.get(k) or {}
+            if sub.get("enabled"):
+                return tuple(int(v) for v in sub["size"])
+    return tuple(train_loader.datasets[0].spec.gt_resolution)
+
+
 def main(argv=None):
     cp = ConfigParser.from_args(argv, make_dirs=False)
     device = _device(cp.device)
@@ -124,7 +143,6 @@ def main(argv=None):
             f"(WORLD_SIZE {world}): start one process per data-parallel rank, e.g. torchrun "
             f"--nproc_per_node={dp}, or drop parallel.data_parallel"
         )
-    check_loss_cfg(tcfg.get("loss"))
     precision = tcfg.get("precision", "f32")
     if precision == "f32" and device.type == "cuda":
         # f32 means f32 products: cuDNN would run f32 convolutions in TF32
@@ -196,6 +214,15 @@ def main(argv=None):
         )
     else:
         detail = margs.get("DetailEnabled", margs.get("detail_enabled", True))
+        adv = build_adversarial(tcfg.get("loss"), world)
+        if adv is not None:
+            hw = _discriminator_hw(cp["train_dataloader"], train_loader)
+            sample = torch.zeros((1, *hw, 3), device=device)
+            state.adv_state = init_adv_state(adv, seed + 1, {"target": sample, "frame": sample})
+            broadcast_module_(state.adv_state.disc)
+            logger.info(f"Adversarial loss enabled: {adv.gan_type} on {hw[0]}x{hw[1]}"
+                        + (" (the discriminator is not checkpointed: it starts afresh)"
+                           if cp.resume else ""))
         trainer = Trainer(
             cp, model, state,
             make_train_step(detail_enabled=bool(detail),

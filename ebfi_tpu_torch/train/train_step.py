@@ -24,31 +24,50 @@ Charbonnier) and means (census, LPIPS).  Each rank here scales its sums
 by ``world``, so that the mean over the ranks of their losses, and of
 their gradients (the Updater's all-reduce), is the global batch's.
 
-Not ported yet, and raising ``NotImplementedError``: the adversarial loss
-term (``trainer.loss``; ROADMAP.md A5) and H-sharded spatial parallelism
-(A5).
+``trainer.loss.adversarial.enabled`` adds ``weight * g_loss`` (weight
+0.01 by default) and steps a discriminator inside the train step, as the
+JAX step does (:func:`build_adversarial`; its state, a discriminator with
+its optimizer, lives in ``TrainState.adv_state``, from
+:func:`init_adv_state`).  The discriminator sees the final head in f32
+and keeps f32 parameters in both precisions; the GAN types conditioned on
+a frame pair get the blurry input frame twice.  It takes one update per
+micro-step, accumulation or not (the JAX step calls it every micro-step,
+where ``optax.MultiSteps`` defers only the model's update); under data
+parallelism its BN statistics and gradients are the global batch's
+(:mod:`~ebfi_tpu_torch.losses.adversarial`).  Its losses are means: no
+``world`` scaling.  The step returns ``g_loss`` and ``d_loss`` beside
+``train_loss``; the adversarial work runs inside a ``record_function``
+range ``ebfi::adversarial``.
+
+Not ported yet, and raising ``NotImplementedError``: H-sharded spatial
+parallelism (ROADMAP.md, queue A, A6).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 from torch.func import functional_call
 
-from ..losses import LPIPS, census_loss, charbonnier_loss, laplacian_loss, load_lpips_params
+from ..losses import (LPIPS, AdversarialLoss, AdvState, census_loss, charbonnier_loss,
+                      laplacian_loss, load_lpips_params)
 from .optim import Updater
+
+ADV_RANGE = "ebfi::adversarial"
 
 
 @dataclass
 class TrainState:
-    """The model (f32 parameters, trained in place), its updater, and the
-    count of micro-steps taken (``TrainState.step`` of the JAX package)."""
+    """The model (f32 parameters, trained in place), its updater, the
+    count of micro-steps taken (``TrainState.step`` of the JAX package),
+    and the discriminator's state where the adversarial term is on."""
 
     model: nn.Module
     updater: Updater
     step: int = 0
+    adv_state: Optional[AdvState] = None
 
 
 def _pair_loss(pred, target, world=1):
@@ -90,12 +109,25 @@ def make_loss_fn(detail_enabled: bool, phase_switch_iter: int = 10_000, compute_
     return loss_fn
 
 
-def check_loss_cfg(loss_cfg: Optional[dict]) -> None:
-    if ((loss_cfg or {}).get("adversarial") or {}).get("enabled", False):
-        raise NotImplementedError(
-            "trainer.loss.adversarial is not ported to ebfi_tpu_torch yet (ROADMAP.md, queue A, "
-            "A5); train it with python -m ebfi_tpu.train"
-        )
+def build_adversarial(loss_cfg: Optional[dict], world: int = 1) -> Optional[AdversarialLoss]:
+    """The AdversarialLoss of ``trainer.loss.adversarial`` (None when it is
+    absent or off), STGAN by default as the reference constructs it;
+    ``world``: the data-parallel ranks."""
+    acfg = (loss_cfg or {}).get("adversarial") or {}
+    if not acfg.get("enabled", False):
+        return None
+    return AdversarialLoss(patch_size=int(acfg.get("patch_size", 32)),
+                           gan_type=acfg.get("gan_type", "STGAN"),
+                           gan_k=int(acfg.get("gan_k", 1)), world=world)
+
+
+def init_adv_state(adv: AdversarialLoss, seed, batch_like: Dict[str, Any]) -> AdvState:
+    """The discriminator's state, its shapes and device from a sample
+    batch's ``target`` and ``frame``, its weights from ``seed`` (an int or
+    a ``torch.Generator``)."""
+    fake = torch.zeros_like(batch_like["target"], dtype=torch.float32)
+    frame = batch_like["frame"].float()
+    return adv.init(seed, fake, fake, torch.stack([frame, frame], dim=1))
 
 
 def build_lpips_term(loss_cfg: Optional[dict]):
@@ -117,7 +149,8 @@ def make_train_step(
     world: int = 1,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns step(state, batch) -> (state, {"train_loss": device scalar,
-    and "lpips_loss" with the perceptual term}).
+    "lpips_loss" with the perceptual term, "g_loss" and "d_loss" with the
+    adversarial one}).
 
     batch: frame (B, H, W, 3), event (B, H, W, 2TB), t (B, 1), gt_ex (B, 1)
     or absent, target (B, H, W, 3), on the model's device: under data
@@ -127,11 +160,12 @@ def make_train_step(
     if spatial:
         raise NotImplementedError(
             "spatial (H-sharded) training is not ported to ebfi_tpu_torch yet (ROADMAP.md, "
-            "queue A, A5)"
+            "queue A, A6)"
         )
-    check_loss_cfg(loss_cfg)
     loss_fn = make_loss_fn(detail_enabled, phase_switch_iter, compute_dtype, world)
     lpips, w_lpips = build_lpips_term(loss_cfg)
+    adv = build_adversarial(loss_cfg, world)
+    w_adv = float(((loss_cfg or {}).get("adversarial") or {}).get("weight", 0.01))
 
     def step_fn(state: TrainState, batch):
         loss, final = loss_fn(state.model, batch, state.step)
@@ -140,6 +174,17 @@ def make_train_step(
             lp = lpips.to(final.device)(final.clamp(0.0, 1.0), batch["target"].float()).mean()
             loss = loss + w_lpips * lp
             metrics["lpips_loss"] = lp.detach()
+        if adv is not None:
+            if state.adv_state is None:
+                raise ValueError("the adversarial loss is on but state.adv_state is None: set it "
+                                 "to init_adv_state(...) first")
+            frame = batch["frame"].float()
+            with torch.autograd.profiler.record_function(ADV_RANGE):
+                state.adv_state, g_loss, d_loss = adv.step(
+                    state.adv_state, final, batch["target"].float(),
+                    torch.stack([frame, frame], dim=1))
+            loss = loss + w_adv * g_loss
+            metrics["g_loss"], metrics["d_loss"] = g_loss.detach(), d_loss
         loss.backward()
         state.updater.step()
         state.step += 1

@@ -213,20 +213,27 @@ class Trainer:
         return dict(zip(values, t.tolist()))
 
     def _log(self, it: int, metrics):
+        """At the logging cadence: every metric of the step (``train_loss``,
+        and ``lpips_loss``, ``g_loss``, ``d_loss`` where their terms are
+        on), averaged over the ranks."""
         if it % self.train_log_step != 0:
             return
-        loss = self._rank_mean({"train_loss": float(metrics["train_loss"])})["train_loss"]
-        self.train_metrics.update("train_loss", loss)
+        values = self._rank_mean({k: float(v) for k, v in metrics.items()})
+        for k, v in values.items():
+            self.train_metrics.update(k, v)
+        loss = values["train_loss"]
         now = time.perf_counter()
         sps = None
         if self._last_log is not None and now > self._last_log[1]:
             sps = (it - self._last_log[0]) / (now - self._last_log[1])
         self._last_log = (it, now)
         if self.writer is not None:
-            self.writer.add_scalar("train_loss", loss, it)
+            for k, v in values.items():
+                self.writer.add_scalar(k, v, it)
             if sps is not None:
                 self.writer.add_scalar("steps_per_sec", sps, it)
         msg = f"Iteration: {it}/{self.iterations} train_loss: {loss:.4e}"
+        msg += "".join(f" {k}: {v:.4e}" for k, v in values.items() if k != "train_loss")
         if sps is not None:
             msg += f" steps/sec: {sps:.2f}"
         self.logger.info(msg)

@@ -13,7 +13,10 @@ hang fails its test.
   2 * lr per update apart; in f32 also at most 0.1 % of them more than
   1e-3 * lr), or, with SGD, within 1e-3 of the largest change (as
   ``test_torch_train.py``), which holds only if each rank's loss weighs
-  its share of the batch as the global loss does.
+  its share of the batch as the global loss does.  With the STGAN term
+  the discriminator's parameters are held the same way (its Adamax lr is
+  the model's 1e-3), which holds only if its BN statistics are the global
+  batch's and its gradients are averaged over the ranks.
 - The train CLI on 2 ranks: equal step counts on shards of uneven length,
   checkpoints and the config snapshot from rank 0 alone, one valid_loss,
   and the two configuration errors.
@@ -32,7 +35,8 @@ import torch
 
 from ebfi_tpu_torch.models import EVFIAutoEx, init_weights
 from ebfi_tpu_torch.parallel import dist as pdist
-from ebfi_tpu_torch.train import TrainState, build_optimizer, make_train_step
+from ebfi_tpu_torch.train import (TrainState, build_adversarial, build_optimizer, init_adv_state,
+                                  make_train_step)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 LAUNCH_TIMEOUT_S = 120
@@ -77,7 +81,8 @@ import json, sys
 import numpy as np, torch
 from ebfi_tpu_torch.models import EVFIAutoEx, init_weights
 from ebfi_tpu_torch.parallel import broadcast_module_, local_shard_info, maybe_init_distributed
-from ebfi_tpu_torch.train import TrainState, build_optimizer, make_train_step
+from ebfi_tpu_torch.train import (TrainState, build_adversarial, build_optimizer, init_adv_state,
+                                  make_train_step)
 
 spec = json.loads(sys.argv[1])
 assert maybe_init_distributed()
@@ -86,9 +91,15 @@ model = init_weights(EVFIAutoEx(**spec["model"]), 0)
 broadcast_module_(model)
 updater, _ = build_optimizer(model, spec["opt"], accumulate_steps=spec["accu"],
                              data_parallel=True)
-step = make_train_step(compute_dtype=torch.bfloat16 if spec["bf16"] else None, world=world)
+step = make_train_step(compute_dtype=torch.bfloat16 if spec["bf16"] else None, world=world,
+                       loss_cfg=spec["loss"])
 state = TrainState(model, updater)
 data = np.load(spec["batches"])
+if spec["loss"]:
+    sample = torch.zeros((1,) + data["frame_0"].shape[1:])
+    state.adv_state = init_adv_state(build_adversarial(spec["loss"], world), 1,
+                                     {"target": sample, "frame": sample})
+    broadcast_module_(state.adv_state.disc)
 losses = []
 for i in range(spec["micro_steps"]):
     n = data["frame_%d" % i].shape[0] // world
@@ -96,18 +107,24 @@ for i in range(spec["micro_steps"]):
          for k in ("frame", "event", "t", "target")}
     state, m = step(state, b)
     losses.append(float(m["train_loss"]))
+disc = state.adv_state.disc.state_dict() if spec["loss"] else {}
 np.savez(spec["out"] % rank, losses=np.array(losses),
-         **{k: v.numpy() for k, v in model.state_dict().items()})
+         **{k: v.numpy() for k, v in model.state_dict().items()},
+         **{"disc." + k: v.numpy() for k, v in disc.items()})
 """
 
 STEP_CASES = {
-    # name: (ranks, optimizer, accumulation, bf16)
+    # name: (ranks, optimizer, accumulation, bf16[, trainer.loss])
     "f32_adam": (2, {"name": "Adam", "args": {"lr": 1e-3}}, 1, False),
     "f32_adam_accu2": (2, {"name": "Adam", "args": {"lr": 1e-3}}, 2, False),
     "bf16_adam": (2, {"name": "Adam", "args": {"lr": 1e-3}}, 1, True),
     "bf16_adam_accu2": (2, {"name": "Adam", "args": {"lr": 1e-3}}, 2, True),
     "f32_sgd": (2, {"name": "SGD", "args": {"lr": 1e-2}}, 1, False),
     "f32_adam_4ranks": (4, {"name": "Adam", "args": {"lr": 1e-3}}, 1, False),
+    # the discriminator's BN statistics over the global batch, its
+    # gradients averaged before each of its Adamax (lr 1e-3) updates
+    "f32_adam_stgan": (2, {"name": "Adam", "args": {"lr": 1e-3}}, 1, False,
+                       {"adversarial": {"enabled": True, "gan_type": "STGAN", "weight": 0.05}}),
 }
 UPDATES = 2
 
@@ -125,12 +142,13 @@ def _global_batches(path, n, micro_steps, seed=1):
 
 @pytest.mark.parametrize("case", list(STEP_CASES))
 def test_ranks_step_as_one_process_on_the_global_batch(tmp_path, case):
-    ranks, opt, accu, bf16 = STEP_CASES[case]
+    ranks, opt, accu, bf16, loss_cfg = (*STEP_CASES[case], None)[:5]
     micro = UPDATES * accu
     model_kw = {**MODEL, "fast_mod": bf16}  # bf16 as FastVariants trains: fused Modification
     batches = _global_batches(tmp_path / "batches.npz", ranks * PER_RANK, micro)
     spec = {"model": model_kw, "opt": opt, "accu": accu, "bf16": bf16, "micro_steps": micro,
-            "batches": str(tmp_path / "batches.npz"), "out": str(tmp_path / "rank%d.npz")}
+            "loss": loss_cfg, "batches": str(tmp_path / "batches.npz"),
+            "out": str(tmp_path / "rank%d.npz")}
     for rc, out, err in launch(ranks, ["-c", STEP_WORKER, json.dumps(spec)]):
         assert rc == 0, err[-3000:]
     got = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(ranks)]
@@ -139,13 +157,19 @@ def test_ranks_step_as_one_process_on_the_global_batch(tmp_path, case):
     model = init_weights(EVFIAutoEx(**model_kw), 0)
     init = {k: v.clone() for k, v in model.state_dict().items()}
     updater, _ = build_optimizer(model, opt, accumulate_steps=accu)
-    step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None)
+    step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None, loss_cfg=loss_cfg)
     state, losses = TrainState(model, updater), []
+    if loss_cfg:
+        sample = torch.zeros((1, H, W, 3))
+        state.adv_state = init_adv_state(build_adversarial(loss_cfg), 1,
+                                         {"target": sample, "frame": sample})
     for i in range(micro):
         b = {k: torch.from_numpy(batches[f"{k}_{i}"]) for k in ("frame", "event", "t", "target")}
         state, m = step(state, b)
         losses.append(float(m["train_loss"]))
     want = {k: v.numpy() for k, v in model.state_dict().items()}
+    if loss_cfg:  # Adamax's first updates are about lr * sign(g) too, lr 1e-3 as the model's
+        want.update({"disc." + k: v.numpy() for k, v in state.adv_state.disc.state_dict().items()})
 
     for r in range(1, ranks):  # bitwise equal replicas
         for k in want:
@@ -182,7 +206,7 @@ def test_without_a_group_everything_is_one_process(monkeypatch):
     pdist.all_reduce_mean_([t])
     pdist.barrier()
     assert torch.equal(t, torch.arange(4.0))
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A6"):
         pdist.spatial_shardings()
 
 

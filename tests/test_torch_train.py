@@ -178,12 +178,109 @@ def test_exposure_step_matches_jax(fashion):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A6"):
         make_train_step(spatial=True)
-    with pytest.raises(NotImplementedError, match="A5"):
-        make_train_step(loss_cfg={"adversarial": {"enabled": True}})
-    # the perceptual term is ported (test_torch_lpips.py holds it against JAX)
+    # the adversarial and perceptual terms are ported (test_torch_adversarial.py and
+    # test_torch_lpips.py hold them against JAX); the adversarial one needs its state
+    step = make_train_step(loss_cfg={"adversarial": {"enabled": True}})
+    tm = EVFIAutoEx(**ARGS)
+    updater, _ = build_optimizer(tm, {"name": "SGD", "args": {"lr": 1e-3}})
+    b = {k: torch.from_numpy(v) for k, v in _batches(0, n=1)[0].items()}
+    with pytest.raises(ValueError, match="adv_state"):
+        step(TrainState(tm, updater), b)
     make_train_step(loss_cfg={"perceptual": {"enabled": True}})
+
+
+ADV_CFG = {"adversarial": {"enabled": True, "gan_type": "STGAN", "weight": 0.05}}
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_adversarial_train_steps_match_jax(precision):
+    """Three Adam steps of the tiny model with the STGAN term against the
+    JAX step on the same batches, from the same model and discriminator
+    weights: train_loss, g_loss and d_loss at every step (f32 1e-4
+    relative; bf16: train_loss 2e-2, as the plain bf16 step, g_loss and
+    d_loss 5e-2: the discriminator's Adamax update amplifies one-ulp bf16
+    differences of the final head it sees, while given the same head the
+    two adversarial steps agree as in f32); the generator's
+    parameters within 2 * lr per Adam step (in f32 also at most 0.1 % of
+    them more than 1e-3 * lr apart); the discriminator's, updated by
+    Adamax (lr 1e-3, first updates about lr * sign(g)), within 2 * lr per
+    update in both precisions (it sees the f32 final head of generators
+    that drift apart by those bounds)."""
+    from ebfi_tpu.train.train_step import build_adversarial as jax_build_adversarial
+    from ebfi_tpu.train.train_step import init_adv_state as jax_init_adv_state
+    from ebfi_tpu_torch.models import discriminator_params_from_jax
+    from ebfi_tpu_torch.train import build_adversarial, init_adv_state
+
+    bf16 = precision == "bf16"
+    jm, params, tm = _models()
+    opt_cfg = {"name": "Adam", "args": {"lr": 1e-3}}
+    tx, _ = jax_build_optimizer(opt_cfg)
+    sample = {"target": jnp.zeros((1, H, W, 3)), "frame": jnp.zeros((1, H, W, 3))}
+    jadv = jax_init_adv_state(jax_build_adversarial(ADV_CFG), jax.random.key(9), sample)
+    jstate = create_train_state(jm, params, tx).replace(adv_state=jadv)
+    jstep = jax_train_step(jm, compute_dtype=jnp.bfloat16 if bf16 else None, loss_cfg=ADV_CFG)
+
+    updater, _ = build_optimizer(tm, opt_cfg)
+    tsample = torch.zeros((1, H, W, 3))
+    adv_state = init_adv_state(build_adversarial(ADV_CFG), 0, {"target": tsample,
+                                                                 "frame": tsample})
+    adv_state.disc.load_state_dict(discriminator_params_from_jax(
+        jax.tree.map(np.asarray, jadv.params)), strict=True)
+    tstate = TrainState(tm, updater, adv_state=adv_state)
+    tstep = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None, loss_cfg=ADV_CFG)
+    rtol = {"train_loss": 2e-2, "g_loss": 5e-2, "d_loss": 5e-2} if bf16 else {
+        "train_loss": 1e-4, "g_loss": 1e-4, "d_loss": 1e-4}
+    for i, b in enumerate(_batches(5)):
+        jstate, jm_ = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        tstate, tm_ = tstep(tstate, {k: torch.from_numpy(v) for k, v in b.items()})
+        for k, tol in rtol.items():
+            want, got = float(jm_[k]), float(tm_[k])
+            assert abs(got - want) <= tol * abs(want), f"step {i}: {k} {got} vs {want}"
+    lr = opt_cfg["args"]["lr"]
+    want = _port_params(jstate.params)
+    got = {k: v.detach().numpy() for k, v in tm.state_dict().items()}
+    diffs = np.concatenate([np.abs(got[k] - want[k]).ravel() for k in want])
+    assert diffs.max() <= 2 * lr * STEPS
+    if not bf16:
+        assert (diffs > 1e-3 * lr).mean() <= 1e-3
+    want = {k: v.numpy() for k, v in discriminator_params_from_jax(
+        jax.tree.map(np.asarray, jstate.adv_state.params)).items()}
+    got = {k: v.detach().numpy() for k, v in tstate.adv_state.disc.state_dict().items()}
+    assert all(v.dtype == np.float32 for v in got.values())
+    d_diffs = np.concatenate([np.abs(got[k] - want[k]).ravel() for k in want])
+    assert d_diffs.max() <= 2 * 1e-3 * STEPS
+
+
+@pytest.mark.parametrize("gan_type", ["GAN", "WGAN", "WGAN_GP", "T_WGAN_GP", "FI_GAN",
+                                      "FI_Cond_GAN", "STGAN"])
+def test_adversarial_train_step_runs_for_every_gan_type(gan_type):
+    """``make_train_step`` with each GAN type and two accumulated
+    micro-steps: the discriminator updates at every micro-step
+    (its state moves at the first one), the model only at the second, and
+    the metrics are finite (each type's step is held against JAX in
+    test_torch_adversarial.py)."""
+    from ebfi_tpu_torch.train import build_adversarial, init_adv_state
+
+    cfg = {"adversarial": {"enabled": True, "gan_type": gan_type}}
+    torch.manual_seed(0)
+    tm = EVFIAutoEx(**ARGS)
+    updater, _ = build_optimizer(tm, {"name": "Adam", "args": {"lr": 1e-3}}, accumulate_steps=2)
+    sample = torch.zeros((1, H, W, 3))
+    state = TrainState(tm, updater, adv_state=init_adv_state(build_adversarial(cfg), 1, {
+        "target": sample, "frame": sample}))
+    step = make_train_step(loss_cfg=cfg)
+    model0 = {k: v.clone() for k, v in tm.state_dict().items()}
+    disc0 = {k: v.clone() for k, v in state.adv_state.disc.state_dict().items()}
+    b1, b2 = ({k: torch.from_numpy(v) for k, v in b.items()} for b in _batches(6, n=2))
+    state, m = step(state, b1)
+    assert all(torch.equal(v, model0[k]) for k, v in tm.state_dict().items())
+    assert not all(torch.equal(v, disc0[k]) for k, v in state.adv_state.disc.state_dict().items())
+    state, m = step(state, b2)
+    assert not all(torch.equal(v, model0[k]) for k, v in tm.state_dict().items())
+    assert set(m) == {"train_loss", "g_loss", "d_loss"}
+    assert all(np.isfinite(float(v)) for v in m.values())
 
 
 # ---------------------------------------------------------------- the trainers

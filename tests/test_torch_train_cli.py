@@ -125,6 +125,50 @@ def test_full_model_cli_checkpoints_and_resume(data, tmp_path):
     assert first["step"] == 2  # two steps taken after the reset to step 0
 
 
+def test_adversarial_term_trains_and_logs_its_losses(data, tmp_path):
+    """An STGAN section in the config: the discriminator takes the random
+    crop's shape (32x32 of a 48x40 clip: a 2x2x64 ladder output per
+    stream), trains beside the model, and every logged iteration carries
+    g_loss and d_loss; a resume starts the discriminator afresh (it is not
+    checkpointed)."""
+    import re
+
+    from ebfi_tpu_torch.losses.discriminator import build_discriminator, init_discriminator
+
+    write_clip_npz(str(tmp_path / "clip48x40.npz"), num_frames=25, H=48, W=40, seed=3)
+    (tmp_path / "train.txt").write_text(str(tmp_path / "clip48x40.npz") + "\n")
+    cfg = _full_cfg(data, tmp_path / "out", iterations=2, **{
+        "trainer;loss": {"adversarial": {"enabled": True, "gan_type": "STGAN", "weight": 0.01}},
+        "train_dataloader;path_to_datalist_txt": str(tmp_path / "train.txt"),
+        "train_dataloader;dataset;data_augment;enabled": True,
+        "train_dataloader;dataset;data_augment;random_crop;enabled": True,
+        "train_dataloader;dataset;data_augment;random_crop;size": [32, 32],
+        "trainer;do_validation": False,
+    })
+    path = _write(tmp_path / "cfg.yml", cfg)
+    trainer = train_main(["-c", path, "-id", "adv", "--device", "cpu"])
+    assert trainer.state.step == 2
+    disc = trainer.state.adv_state.disc
+    assert disc.classifier.dense0.in_features == 2 * 2 * 2 * 64
+    init = init_discriminator(build_discriminator("STGAN", (32, 32)),
+                              torch.Generator().manual_seed(cfg["seed"] + 1)).state_dict()
+    assert all(not torch.equal(v, init[k]) for k, v in disc.state_dict().items()
+               if not k.endswith(("scale", "bias")))
+    log = (tmp_path / "out" / "logs" / "EVFIAutoEx" / "adv" / "info.txt").read_text()
+    lines = re.findall(r"Iteration: (\d+)/2 train_loss: \S+ g_loss: (\S+) d_loss: (\S+)", log)
+    assert [it for it, _, _ in lines] == ["1", "2"]
+    assert all(np.isfinite(float(g)) and np.isfinite(float(d)) for _, g, d in lines)
+    assert "Adversarial loss enabled: STGAN on 32x32" in log
+    ckpt = str(tmp_path / "out" / "models" / "EVFIAutoEx" / "adv" / "checkpoint-iteration2.pt")
+    assert "adv_state" not in str(restore_checkpoint(ckpt).keys())
+    cfg["trainer"]["iteration_based_train"]["iterations"] = 3
+    resumed = train_main(["-c", _write(tmp_path / "cfg3.yml", cfg), "-id", "adv_r",
+                          "--device", "cpu", "-r", ckpt])
+    assert resumed.state.step == 3
+    assert "starts afresh" in (tmp_path / "out" / "logs" / "EVFIAutoEx" / "adv_r"
+                               / "info.txt").read_text()
+
+
 def test_epoch_based_training(data, tmp_path):
     cfg = _full_cfg(data, tmp_path / "out", **{
         "trainer;iteration_based_train;enabled": False,
