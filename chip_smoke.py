@@ -13,7 +13,9 @@ seconds elapsed:
    bf16 (B2, B2p and B3 also at a ragged shape), then timed at the serving
    path's shapes beside its bound, the plain version's time and, for B2
    and B3, cuDNN's bf16 time for their bank conv alone (a yardstick: the
-   port never calls it);
+   port never calls it); then B3, B2 and B2p in f32 at the same shapes,
+   the CUDA-core route (``csrc/mod_fac.cu``), checked and timed beside its
+   bound at 67 TFLOP/s;
 4. the serving engine at 720x1280 with N = 16 timestamps and the shipped
    model's widths (random weights from a seed): (a) bf16 hoisted
    ``interpolate`` through kernel B2, (b) bf16 ``forward`` through B3,
@@ -70,13 +72,28 @@ seconds elapsed:
    ranks with STGAN on the one card against one process; (d)
    ``events_to_stack``, ``averaged_iwe``, EventWarping and
    BrightnessConstancy at 720x1280 with 200 000 events, card against CPU,
-   with their ms on the card.
+   with their ms on the card;
+9. dataset generation and the op and block library: (a) one synthetic
+   sequence of 9 frames at 720x1280, written as PNGs with all five row
+   filters, through ``ebfi_tpu_torch.data.generate.main`` on the card
+   with a random-weight SuperSloMo checkpoint whose flow UNet outputs a
+   constant flow (|F| = 2.5, so 3 frames per pair; the UNet still runs in
+   full): ms per flow pass and per arbitrary-time pass (CUDA events) beside
+   their bounds, pairs/s and output frames/s, host seconds in the PNG
+   decode, ``simulate_events`` and the write, peak memory; then one item of
+   the written clip through ``NpzClipDataset``; (b) SuperSloMo's
+   ``upsample_sequence`` and the generator at 64x96, card against CPU;
+   (c) DCNv2's forward and gradients, PSROI pooling, every block of
+   ``models/library.py`` and ConvLayer's BN (train and eval) and IN, card
+   against CPU.
 
 The line before the last is a JSON object with the kernels' numbers
 (``launches_train``: B1's launches in run (a), validation forwards
 included, and B3's in run (b); ``launches_dp_nccl``: the same in phase 7
 (a); ``launches_adversarial``: the same in phase 8 (a)'s runs in this
-process); the last line is ``{"ok": true,
+process; ``launches_generate``: all kernels' launches in phase 9 (a)'s
+generator run, 0: no FAC kernel is on that path; ``f32_route``: B2, B2p and
+B3's f32 numbers from phase 3); the last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises and
 the run exits non-zero; without a CUDA card it exits 2 and prints no
 result.
@@ -215,22 +232,26 @@ def work(name: str, B: int, n: int, h: int, w: int, dtype: str):
     return (2 * n + 1) * pix * C * s + weights, 2 * pix * (n + 1) * 9 * C * K * K * C + fac
 
 
+def plain_version(torch, cs, args):
+    """The plain version in f32 on the kernel's inputs; B2's per frame in
+    chunks of 4 timestamps, which bounds its f32 bank (at N = 16 whole it
+    would be 16 x 360 x 640 x 1600 floats, 23.6 GB)."""
+    f32 = [a.float() if torch.is_tensor(a) else a for a in args]
+    if not cs["shared"]:
+        return cs["plain"](*f32)
+    ev, ff = f32[0], f32[1]
+    n = ev.shape[0] // ff.shape[0]
+    return torch.cat([cs["plain"](ev[b * n + i : b * n + min(i + 4, n)], ff[b : b + 1], *f32[2:])
+                      for b in range(ff.shape[0]) for i in range(0, n, 4)])
+
+
 def compare(torch, cs, args, label: str) -> float:
     """Kernel against its plain version evaluated in f32 on the same inputs
-    (B2's per frame in chunks of 4 timestamps, which bounds the plain
-    version's f32 bank); raises beyond the stated tolerance."""
+    (:func:`plain_version`); raises beyond the stated tolerance."""
     dname = str(args[0].dtype).split(".")[1]
     with torch.inference_mode():
         got = cs["fn"](*args).float()
-        f32 = [a.float() if torch.is_tensor(a) else a for a in args]
-        if cs["shared"]:  # frame by frame, its timestamps four at a time
-            ev, ff = f32[0], f32[1]
-            n = ev.shape[0] // ff.shape[0]
-            ref = torch.cat([cs["plain"](ev[b * n + i : b * n + min(i + 4, n)], ff[b : b + 1],
-                                         *f32[2:])
-                             for b in range(ff.shape[0]) for i in range(0, n, 4)])
-        else:
-            ref = cs["plain"](*f32)
+        ref = plain_version(torch, cs, args)
         torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
     tol = TOL_REL[dname] * ref.abs().max().item()
@@ -304,7 +325,46 @@ def phase_kernels(torch, kern):
             + ("" if cudnn_ms is None else f"; cuDNN bf16 bank conv alone {cudnn_ms:.3f} ms"))
         del args
         torch.cuda.empty_cache()
+    phase_f32_route(torch, kern, cases, results)
     return results
+
+
+def phase_f32_route(torch, kern, cases, results):
+    """B3, B2 and B2p in f32 at the serving shapes: the CUDA-core route
+    (``csrc/mod_fac.cu``), which no serving path launches (path (c) runs
+    the unfused Modification through B1) and training reaches only in a
+    FastVariants run's f32 eval steps.  Checked against the plain version,
+    timed beside its bound at 67 TFLOP/s and the plain version's time (B2's
+    in chunks of 4 timestamps, as the check runs it); the launches must all
+    take the ``simt_f32`` route.  Adds ``f32_route`` to each result."""
+    hm, wm = H // 2, W // 2
+    for name in ("B3_mod_fac", "B2_mod_fac_shared", "B2p_mod_fac_shared_packed"):
+        cs = cases[name]
+        B, n, _ = cs["main"]
+        args = cs["args"](B, hm, wm, torch.float32, n)
+        shape = f"B={B} N={n} {hm}x{wm}x{C} K={K}"
+        kern.reset_launch_counts()
+        err = compare(torch, cs, args, f"{name} float32 {shape} (serving shape, CUDA-core route)")
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: cs["fn"](*args), reps=2)
+            plain_ms = cuda_ms(lambda: plain_version(torch, cs, args), reps=1)
+        routes = kern.route_counts()["mod_fac_shared" if cs["shared"] else "mod_fac"]
+        if routes["simt_f32"] <= 0 or routes["wgmma_bf16"]:
+            raise AssertionError(f"{name} float32: launches took another route ({routes})")
+        nbytes, flops = work(name, B, n, hm, wm, "float32")
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["float32"] * 1e3
+        bound = max(t_bytes, t_ops)
+        results[name]["f32_route"] = dict(
+            source="ebfi_tpu_torch/csrc/mod_fac.cu", shape=shape, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by="bytes" if t_bytes >= t_ops else "operations",
+            max_abs_err=err, share_of_bound=bound / ms)
+        log(f"time {name} float32 {shape} (CUDA-core route, simt_f32): {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms{' (4 timestamps at a time)' if cs['shared'] else ''}, bound "
+            f"{bound:.3f} ms at 67 TFLOP/s ({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound / ms:.1f} "
+            f"% of the bound); launches on the paths: 0 in serving (route counts of phase 4), 0 "
+            f"in phase 6 (b) (validation off), once per eval forward of a FastVariants run")
+        del args
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------- engine
@@ -1777,6 +1837,307 @@ def phase_adversarial(torch, kern, single):
     return {"B1_fac": out["f32"]["launches"]["fac"], "B3_mod_fac": out["bf16"]["launches"]["mod_fac"]}
 
 
+# ---------------------------------------------------------------- dataset generation
+
+GEN_FRAMES = 9  # one 720p sequence: 8 pairs
+GEN_FLOW = (1.5, 2.0)  # the flow UNet's constant output: |F| = 2.5, 3 frames per pair
+GEN_DATASET = {  # the port's loader on the written clip: 2 periods of 8 frames
+    "scale": 1, "ori_scale": "ori", "time_bins": 16, "NumFramePerPeriod": 8,
+    "NumFramePerBlurry": 8, "NumPeriodPerSeq": 2, "SlidingWindowSeq": 1, "NumPeriodPerLoad": 1,
+    "SlidingWindowLoad": 1, "ExposureMethod": "Custom", "ExposureTime": [3, 5, 7],
+    "data_augment": {"enabled": False},
+}
+SLOMO_FLOW_BIAS = (3.5, -2.5, 1.5, -3.0)  # (b): random nets' sub-pixel flow raised to ~3-4 px
+SLOMO_TOL = 5e-4  # (b) frames in [0, 1], card vs CPU: two ten-level UNets and four warps
+LIB_TOL = 1e-4  # (c) forwards, relative to the largest magnitude: cuDNN's f32 sums vs the CPU's
+DCN_GRAD_TOL = 5e-4  # (c) DCN gradients: the gathers' backward adds atomically on the card
+
+
+def slomo_checkpoint(torch, path, seed, flow=None, flow_bias=None):
+    """Random SuperSloMo weights from a seed (torch's Conv2d init), written
+    in the published checkpoint's layout.  ``flow``: the flow UNet's conv3
+    zeroed and its bias set so that both flows are this constant (the UNet
+    still runs in full); ``flow_bias``: added to conv3's bias."""
+    from ebfi_tpu_torch.models import superslomo as ss
+
+    g = torch.Generator().manual_seed(seed)
+    fnet, inet = ss.init_unet_(ss.SloMoUNet(6, 4), g), ss.init_unet_(ss.SloMoUNet(20, 5), g)
+    with torch.no_grad():
+        if flow is not None:
+            fnet.conv3.weight.zero_()
+            fnet.conv3.bias.copy_(torch.tensor(flow * 2))
+        if flow_bias is not None:
+            fnet.conv3.bias.add_(torch.tensor(flow_bias))
+    ss.save_checkpoint(path, fnet.state_dict(), inet.state_dict())
+
+
+def write_sequence(path, frames):
+    """PNG frames with the five row filters in turn, row by row (what cv2
+    and other writers choose among), so the reader decodes every filter."""
+    from ebfi_tpu_torch.utils.vis import encode_png
+
+    os.makedirs(path)
+    for k, f in enumerate(frames):
+        with open(os.path.join(path, f"{k:05d}.png"), "wb") as fh:
+            fh.write(encode_png(f, np.arange(f.shape[0]) % 5))
+
+
+def conv_flops(torch, net, run):
+    """Multiply-adds x 2 of every Conv2d of ``net`` in ``run()``, counted
+    from the shapes it sees."""
+    total = [0]
+
+    def hook(m, inp, out):
+        total[0] += 2 * out.numel() * (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def _npz(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def generate_at_720p(torch, kern, tmp):
+    """(a): timings of the two passes, then the generator end to end on
+    the card; returns the launches of the kernels in its run."""
+    from ebfi_tpu_torch.data import generate
+    from ebfi_tpu_torch.data.clip_dataset import NpzClipDataset
+    from ebfi_tpu_torch.data.synth import render_frames
+    from ebfi_tpu_torch.models import superslomo as ss
+
+    t0 = time.perf_counter()
+    write_sequence(os.path.join(tmp, "in", "seq0"),
+                   render_frames(GEN_FRAMES, H, W, seed=SEED, speed=3.0))
+    ckpt = os.path.join(tmp, "SuperSloMo.ckpt")
+    slomo_checkpoint(torch, ckpt, SEED, flow=GEN_FLOW)
+    log(f"generate (a): {GEN_FRAMES} frames of {H}x{W} written as PNG (filters 0-4 by row) and a "
+        f"random-weight checkpoint (seed {SEED}, flow fixed at {GEN_FLOW}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    slomo = ss.load_checkpoint(ckpt, "cuda")
+    hp, wp = H + (-H) % 32, W + (-W) % 32
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    i0, i1 = (torch.rand(1, hp, wp, 3, generator=g, device="cuda") - 0.42 for _ in range(2))
+    with torch.inference_mode():
+        f01, f10 = slomo.flow(i0, i1)
+        count = slomo.insert_count(f01, f10)
+        flow_ms = cuda_ms(lambda: slomo.flow(i0, i1), reps=5)
+        interp_ms = cuda_ms(lambda: slomo._interp_fn(i0, i1, f01, f10, 1 / 3), reps=5)
+        flow_ops = conv_flops(torch, slomo.flow_net, lambda: slomo.flow(i0, i1))
+        interp_ops = conv_flops(torch, slomo.interp_net,
+                                lambda: slomo._interp_fn(i0, i1, f01, f10, 1 / 3))
+    if count != 3:
+        raise AssertionError(f"generate (a): insertion count {count}, 3 expected from |F| = 2.5")
+    peak = PEAK_FLOPS["float32"]
+    for what, ms, ops in (("flow", flow_ms, flow_ops), ("arbitrary-time", interp_ms, interp_ops)):
+        log(f"time SuperSloMo {what} pass at {hp}x{wp} (f32, cuDNN, no TF32): {ms:.3f} ms; "
+            f"{ops / 1e12:.3f} TFLOP of convolutions, bound {ops / peak * 1e3:.3f} ms at 67 TFLOP/s "
+            f"({100 * ops / peak * 1e3 / ms:.1f} % of it; {ops / ms / 1e9:.1f} TFLOP/s)")
+    del slomo, i0, i1, f01, f10
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launch_counts()
+    t0 = time.perf_counter()
+    (rec,) = generate.main(["--input_dir", os.path.join(tmp, "in"), "--output_dir",
+                            os.path.join(tmp, "out"), "--slomo_ckpt", ckpt, "--seed", str(SEED),
+                            "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = kern.launch_counts()
+    pairs = rec["frames_in"] - 1
+    ok = rec["frames_out"] == 3 * pairs and rec["events"] > 0 and not any(launches.values())
+    log(f"generate (a) python -m ebfi_tpu_torch.data.generate on the card: {rec['frames_in']} "
+        f"frames -> {rec['frames_out']} ({3 * pairs} expected: {pairs} pairs x (I0 + 2)), "
+        f"{rec['events']} events (Cp={rec['cp']:.3f}, Cn={rec['cn']:.3f}) in {wall:.2f} s; "
+        f"upsampler {rec['upsample_s']:.3f} s: {pairs / rec['upsample_s']:.2f} pairs/s, "
+        f"{rec['frames_out'] / rec['upsample_s']:.2f} output frames/s; host: PNG decode "
+        f"{rec['read_s']:.3f} s, simulate_events {rec['simulate_s']:.3f} s, write "
+        f"{rec['write_s']:.3f} s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel launches {launches} "
+        f"(none on this path) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("generate (a): the generator did not run as expected")
+
+    ds = NpzClipDataset(rec["path"], GEN_DATASET)
+    item = ds.get(0, seed=SEED)
+    shapes = {k: v.shape for k, v in item.items()}
+    ok = (len(ds) > 0 and item["latent"].shape[-3:] == (H, W, 3)
+          and item["events"].shape[-3:] == (H, W, 32)
+          and all(np.isfinite(v).all() for v in item.values()) and item["events"].sum() > 0)
+    log(f"generate (a) the written clip through NpzClipDataset: {len(ds)} items, item 0 {shapes}, "
+        f"finite, {int(item['events'].sum())} events in its stack {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("generate (a): the written clip does not load as training input")
+    return launches
+
+
+def generate_card_vs_cpu(torch, tmp):
+    """(b): SuperSloMo and the generator at 64x96, card against CPU, with
+    random weights whose flow is raised to a few pixels."""
+    from ebfi_tpu_torch.data import generate
+    from ebfi_tpu_torch.data.synth import render_frames
+    from ebfi_tpu_torch.models import superslomo as ss
+
+    ckpt = os.path.join(tmp, "small.ckpt")
+    slomo_checkpoint(torch, ckpt, SEED + 1, flow_bias=SLOMO_FLOW_BIAS)
+    frames = render_frames(3, 64, 96, seed=SEED + 1, speed=3.0)
+    ts = np.arange(3) / 240.0
+    card, cpu = ss.load_checkpoint(ckpt, "cuda"), ss.load_checkpoint(ckpt, "cpu")
+    x = frames.astype(np.float32) / 255.0
+    uc, tc = card.upsample_sequence(x, ts)
+    up, tp = cpu.upsample_sequence(x, ts)
+    err = float(np.abs(uc - up).max()) if uc.shape == up.shape else float("inf")
+    ok = tc == tp and uc.shape == up.shape and len(tc) > 2 and err <= SLOMO_TOL
+    log(f"check generate (b) upsample_sequence card vs CPU, 3 frames of 64x96: {len(tc)} and "
+        f"{len(tp)} frames, times equal {tc == tp}, max abs {err:.2e} (tol {SLOMO_TOL:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("generate (b): SuperSloMo on the card disagrees with the CPU")
+
+    write_sequence(os.path.join(tmp, "small", "seq0"), frames)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        (rec,) = generate.main(["--input_dir", os.path.join(tmp, "small"), "--output_dir",
+                                os.path.join(tmp, f"small_{dev}"), "--slomo_ckpt", ckpt,
+                                "--seed", str(SEED), "--contrast_min", "0.05",
+                                "--contrast_max", "0.1", "--device", dev])
+        outs[dev] = _npz(rec["path"])
+    a, b = outs["cuda"], outs["cpu"]
+    same_ts = np.array_equal(a["image_ts"], b["image_ts"])
+    d = (np.abs(a["images"].astype(int) - b["images"].astype(int))
+         if a["images"].shape == b["images"].shape else np.array([255]))
+    frames_equal = not d.any()
+    events = [k for k in a if k.split("_")[0] in ("ori", "down2", "down4", "down8")]
+    if frames_equal:  # the same frames give the same events, bit for bit
+        ev_ok = set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in events)
+        ev_text = "events equal bit for bit"
+    else:  # a frame value one level apart moves ESIM-lite's crossings
+        ev_ok = abs(len(a["ori_ts"]) - len(b["ori_ts"])) <= 0.01 * len(b["ori_ts"])
+        ev_text = f"events {len(a['ori_ts'])} vs {len(b['ori_ts'])} (within 1 %)"
+    ok = same_ts and d.max() <= 1 and (d == 0).mean() >= 0.999 and ev_ok and len(b["ori_ts"]) > 0
+    log(f"check generate (b) the generator card vs CPU (--device cuda / cpu), 64x96: timestamps "
+        f"equal {same_ts}, uint8 frames max diff {int(d.max())} level, {100 * (d == 0).mean():.3f} "
+        f"% equal (tol 1 level, 99.9 %), {ev_text} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("generate (b): the generator's output differs between card and CPU")
+
+
+def _rel_err(a, b):
+    return float((a.detach().float().cpu() - b.detach().float()).abs().max()
+                 / b.detach().float().abs().max().clamp_min(1e-12))
+
+
+def library_card_vs_cpu(torch):
+    """(c): DCN forward and gradients, PSROI pooling, every library block,
+    ConvLayer's BN (train and eval) and IN, card against CPU."""
+    import copy
+
+    from ebfi_tpu_torch.models import library as lib
+    from ebfi_tpu_torch.models.layers import ConvLayer
+    from ebfi_tpu_torch.ops import dcn_modules
+    from ebfi_tpu_torch.ops.dcn_v2 import dcn_v2_conv
+
+    rng = np.random.default_rng(SEED + 9)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    B, Hs, Ws, Ci, Co, KK, dg = 2, 48, 64, 32, 32, 3, 4
+    cpu = [f(B, Hs, Ws, Ci), 2.0 * f(B, Hs, Ws, dg * 2 * KK * KK),
+           torch.from_numpy(rng.uniform(0, 1, (B, Hs, Ws, dg * KK * KK)).astype(np.float32)),
+           0.1 * f(Co, Ci, KK, KK), f(Co)]
+    cot = f(B, Hs, Ws, Co)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        ins = [t.detach().to(dev).requires_grad_() for t in cpu]  # a leaf on either device
+        out = dcn_v2_conv(*ins, 1, 1, 1, dg)
+        (out * cot.to(dev)).sum().backward()
+        results[dev] = [out] + [t.grad for t in ins]
+    errs = [_rel_err(c, r) for c, r in zip(results["cuda"], results["cpu"])]
+    ok = errs[0] <= LIB_TOL and max(errs[1:]) <= DCN_GRAD_TOL
+    log(f"check library (c) dcn_v2_conv B={B} {Hs}x{Ws}x{Ci}->{Co} K={KK} dg={dg} card vs CPU: "
+        f"forward {errs[0]:.2e} (tol {LIB_TOL:.0e}), gradients x/offset/mask/weight/bias "
+        f"{', '.join(f'{e:.2e}' for e in errs[1:])} (tol {DCN_GRAD_TOL:.0e}, relative to the "
+        f"largest) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("library (c): DCNv2 on the card disagrees with the CPU")
+
+    x = f(2, 24, 32, 3 * 2 * 2)
+    rois = torch.tensor([[0, 1, 2, 20, 15], [1, -3, 4, 30, 22]], dtype=torch.float32)
+    trans = f(2, 2, 2, 2)
+    kw = dict(spatial_scale=0.5, pooled_size=4, output_dim=3, group_size=2, part_size=2,
+              sample_per_part=2, trans_std=0.1)
+    ref = dcn_modules.dcn_v2_psroi_pooling(x, rois, trans, **kw)
+    got = dcn_modules.dcn_v2_psroi_pooling(x.cuda(), rois.cuda(), trans.cuda(), **kw)
+    checks = {"dcn_v2_psroi_pooling": _rel_err(got, ref)}
+
+    torch.manual_seed(SEED)
+    img, seq = f(2, 32, 32, 16), f(2, 10, 16)
+    blocks = {
+        "ResidualBlock": (lib.ResidualBlock(16), img),
+        "ResidualBlock BN": (lib.ResidualBlock(16, "LeakyReLU", "BN"), img),
+        "ResidualBlock IN": (lib.ResidualBlock(16, norm="IN"), img),
+        "TransposedConvLayer": (lib.TransposedConvLayer(16, 8), img),
+        "UpsampleConvLayer": (lib.UpsampleConvLayer(16, 8), img),
+        "SelfAttention": (lib.SelfAttention(16), seq),
+        "MLP": (lib.MLP(16, 32, 4, 3), seq),
+        "ConvLayer1D BN": (lib.ConvLayer1D(16, 8, 3, 1, 1, "ReLU", "BN"), seq),
+        "UNet sum/transpose": (lib.UNet(16, 8, 2, 1, 2), img),
+        "UNet concat/upsample": (lib.UNet(16, 8, 2, 2, 1, "concat", "upsample"), img),
+        "DCN": (dcn_modules.DCN(16, 8), img),
+        "ConvLayer IN": (ConvLayer(16, 8, 3, 1, 1, "LeakyReLU", "IN"), img),
+    }
+    with torch.no_grad():
+        for name, (m, inp) in blocks.items():
+            checks[name] = _rel_err(copy.deepcopy(m).cuda()(inp.cuda()), m(inp))
+        for cell_t in (lib.ConvLSTMCell, lib.ConvGRUCell):
+            cell = cell_t(16, 8)
+            carry = cell_t.init_carry(2, 32, 32, 8)
+            _, y = cell(carry, img)
+            carry_c = cell_t.init_carry(2, 32, 32, 8, device="cuda")
+            checks[cell_t.__name__] = _rel_err(copy.deepcopy(cell).cuda()(carry_c, img.cuda())[1], y)
+        rec = lib.RecurrentConvLayer(16, 8)
+        carry = lib.ConvLSTMCell.init_carry(2, 16, 16, 8)
+        _, y = rec(carry, img)
+        carry_c = lib.ConvLSTMCell.init_carry(2, 16, 16, 8, device="cuda")
+        checks["RecurrentConvLayer"] = _rel_err(copy.deepcopy(rec).cuda()(carry_c, img.cuda())[1], y)
+        # BN: train (batch statistics, running ones moved) then eval (running ones)
+        bn = ConvLayer(16, 8, 3, 1, 1, "ReLU", "BN")
+        bn_c = copy.deepcopy(bn).cuda()
+        checks["ConvLayer BN train"] = _rel_err(bn_c(img.cuda(), train=True), bn(img, train=True))
+        checks["ConvLayer BN running stats"] = max(
+            _rel_err(getattr(bn_c.norm, k), getattr(bn.norm, k)) for k in ("running_mean", "running_var"))
+        checks["ConvLayer BN eval"] = _rel_err(bn_c(img.cuda()), bn(img))
+    bad = {k: v for k, v in checks.items() if not v <= LIB_TOL}
+    log(f"check library (c) card vs CPU, forwards relative to the largest (tol {LIB_TOL:.0e}): "
+        + ", ".join(f"{k} {v:.1e}" for k, v in checks.items()) + (" ok" if not bad else " FAIL"))
+    if bad:
+        raise AssertionError(f"library (c): the card disagrees with the CPU on {sorted(bad)}")
+
+
+def phase_generate(torch, kern):
+    """Phase 9: dataset generation at 720p on the card, card against CPU
+    for SuperSloMo and the generator, and the op and block library.
+    Returns the kernel launches of (a)'s generator run."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ebfi_chip_gen_")
+    try:
+        launches = generate_at_720p(torch, kern, tmp)
+        torch.cuda.empty_cache()
+        generate_card_vs_cpu(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    library_card_vs_cpu(torch)
+    log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -1836,6 +2197,8 @@ def main() -> int:
     dp_launches = phase_data_parallel(torch, kern, single)
     torch.cuda.empty_cache()
     adv_launches = phase_adversarial(torch, kern, single)
+    torch.cuda.empty_cache()
+    gen_launches = phase_generate(torch, kern)
     kernels = []
     for name, r in results.items():
         kernels.append({
@@ -1847,6 +2210,8 @@ def main() -> int:
             "launches_train": train_launches.get(name),
             "launches_dp_nccl": dp_launches.get(name),
             "launches_adversarial": adv_launches.get(name),
+            "launches_generate": sum(gen_launches.values()),
+            "f32_route": r.get("f32_route"),
         })
     faulthandler.cancel_dump_traceback_later()
     print(identity, flush=True)

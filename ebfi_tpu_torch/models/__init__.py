@@ -1,7 +1,7 @@
 """Model family of the port (standard paths of ``ebfi_tpu.models``)."""
 from .control import ResidualControl
 from .convert import (discriminator_params_from_jax, lpips_params_from_jax, params_from_jax,
-                      params_from_reference)
+                      params_from_reference, superslomo_params_from_jax)
 from .evfi import EVFIAutoEx
 from .exposure import ExposureDecision
 from .factory import build_model, init_weights
@@ -23,4 +23,5 @@ __all__ = [
     "lpips_params_from_jax",
     "discriminator_params_from_jax",
     "params_from_reference",
+    "superslomo_params_from_jax",
 ]

@@ -8,8 +8,19 @@ package's ``state_dict`` names and layouts; load the result with
 Layouts: 2D conv kernels HWIO -> OIHW; 3D conv kernels DHWIO -> OIDHW;
 transposed 3D conv kernels, stored (kd, kh, kw, O, I) -> torch's
 (I, O, kd, kh, kw), the same axis permutation; ResidualControl's stacked
-(S, 3, 3, I, O) -> (S, O, I, 3, 3); GroupNorm ``scale`` -> ``weight``.
-Module names are the flax names, with ``Conv_0``/``Conv3D_0`` -> ``conv``.
+(S, 3, 3, I, O) -> (S, O, I, 3, 3); GroupNorm and BatchNorm ``scale`` ->
+``weight``.  The block library's layers (``models/library.py``) add dense
+kernels (in, out) -> (out, in), 1D conv kernels (K, I, O) -> (O, I, K),
+and flax ``ConvTranspose`` kernels (kh, kw, I, O), which flax applies
+unflipped, -> torch's (I, O, kh, kw) flipped in space.  Module names are
+the flax names, with ``Conv_0``/``Conv3D_0``/``ConvTranspose_0`` ->
+``conv`` and ``BatchNorm_0``/``GroupNorm_0`` -> ``norm``; the
+``batch_stats`` collection's ``mean``/``var`` -> ``running_mean``/
+``running_var``.
+
+``superslomo_params_from_jax`` maps the JAX package's SuperSloMo trees
+(``{"flow": ..., "interp": ...}``) onto the two UNets' state_dicts, whose
+names are the reference checkpoint's.
 
 ``lpips_params_from_jax`` does the same for the LPIPS weights, and
 ``discriminator_params_from_jax`` for the adversarial loss's
@@ -30,7 +41,9 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_RENAME = {"Conv_0": "conv", "Conv3D_0": "conv", "kernel": "weight", "scale": "weight"}
+_RENAME = {"Conv_0": "conv", "Conv3D_0": "conv", "ConvTranspose_0": "conv",
+           "BatchNorm_0": "norm", "GroupNorm_0": "norm", "kernel": "weight", "scale": "weight"}
+_STATS_RENAME = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -45,6 +58,12 @@ def _to_torch_layout(path, arr: np.ndarray) -> np.ndarray:
     if path[-1] != "kernel":
         # ResidualControl's stage stacks are the only 5-D non-kernel leaves
         return arr.transpose(0, 4, 3, 1, 2) if arr.ndim == 5 else arr
+    if arr.ndim == 2:
+        return arr.T
+    if arr.ndim == 3:
+        return arr.transpose(2, 1, 0)
+    if arr.ndim == 4 and "ConvTranspose_0" in path:
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)
     if arr.ndim == 4:
         return arr.transpose(3, 2, 0, 1)
     if arr.ndim == 5:
@@ -53,16 +72,29 @@ def _to_torch_layout(path, arr: np.ndarray) -> np.ndarray:
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """flax params (numpy leaves, with or without the top 'params' key) ->
-    a state_dict for the port's module of the same configuration."""
+    """flax params (numpy leaves, with or without the top 'params' key;
+    with it, a 'batch_stats' collection beside it is mapped too) -> a
+    state_dict for the port's module of the same configuration."""
+    stats = tree.get("batch_stats", {}) if "params" in tree else {}
     if "params" in tree:
         tree = tree["params"]
     sd = {}
     for path, leaf in _flatten(tree):
         arr = _to_torch_layout(path, np.asarray(leaf, dtype=np.float32))
         name = ".".join(_RENAME.get(p, p) for p in path)
-        sd[name] = torch.tensor(arr)
+        sd[name] = torch.tensor(np.ascontiguousarray(arr))
+    for path, leaf in _flatten(stats):
+        name = ".".join(_RENAME.get(p, p) for p in path[:-1]) + "." + _STATS_RENAME[path[-1]]
+        sd[name] = torch.tensor(np.asarray(leaf, dtype=np.float32))
     return sd
+
+
+def superslomo_params_from_jax(params: Mapping):
+    """``ebfi_tpu.models.superslomo.init_params``' trees (numpy leaves) ->
+    (flow UNet state_dict, arbitrary-time UNet state_dict), loadable with
+    ``strict=True`` into ``SloMoUNet(6, 4)`` and ``SloMoUNet(20, 5)`` and
+    writable as a reference checkpoint (``superslomo.save_checkpoint``)."""
+    return params_from_jax(params["flow"]), params_from_jax(params["interp"])
 
 
 def lpips_params_from_jax(params: Mapping) -> dict:

@@ -49,6 +49,10 @@ class EVFIAutoEx(nn.Module):
         fast_mod: bool = False,
     ):
         super().__init__()
+        if norm is not None:
+            # Modification's fused and hoisted paths read kernel_conv's
+            # weights directly, past any norm, and ResidualControl has none
+            raise NotImplementedError("EVFIAutoEx is ported with norm=None (the shipped model)")
         self.blurry_fashion = blurry_fashion
         self.use_gt_ex, self.fix_ex = use_gt_ex, fix_ex
         self.frozen_ex = frozen_ex

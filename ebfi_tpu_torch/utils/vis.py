@@ -3,10 +3,12 @@
 ``save_event_cnt``).
 
 PNGs are written without an image library: 8-bit RGB (or grey), filter 0
-on every row, the rows deflated by ``zlib`` at level 1 (the JAX writer's
-``cv2.IMWRITE_PNG_COMPRESSION`` 1).  The files differ from cv2's in their
-bytes, not in their pixels.  :func:`read_png` reads back what
-:func:`save_frame` writes.
+on every row unless asked otherwise, the rows deflated by ``zlib`` at
+level 1 (the JAX writer's ``cv2.IMWRITE_PNG_COMPRESSION`` 1).  The files
+differ from cv2's in their bytes, not in their pixels.  :func:`read_png`
+reads 8-bit grey, RGB and RGBA PNGs without interlace, with any of the
+five row filters, as the dataset generator's frames come (cv2 and other
+writers choose a filter per row).
 """
 from __future__ import annotations
 
@@ -18,30 +20,96 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPES = {3: 2, 1: 0}  # channels -> PNG colour type (RGB, grey)
+_READ_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> channels (grey, RGB, RGBA)
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
 
 
-def encode_png(frame: np.ndarray) -> bytes:
-    """HxWx3 uint8 RGB or HxW uint8 grey -> PNG bytes."""
+_FILTERS = 5  # None, Sub, Up, Average, Paeth
+
+
+def filter_rows(pixels: np.ndarray, filters) -> np.ndarray:
+    """PNG row filtering of (H, W, bpp) uint8 pixels: ``filters`` is one
+    filter type for every row or one per row.  Returns the (H, 1 + W*bpp)
+    rows that IDAT deflates, each led by its filter byte."""
+    H, W, bpp = pixels.shape
+    ftype = np.broadcast_to(np.asarray(filters, np.uint8), (H,))
+    if ftype.max(initial=0) >= _FILTERS:
+        raise ValueError(f"PNG filter types are 0-4, got {sorted(set(ftype.tolist()))}")
+    x = pixels.astype(np.int16)
+    a = np.zeros_like(x)  # left, up and up-left neighbours; 0 outside
+    a[:, 1:] = x[:, :-1]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]
+    pred = np.choose(ftype[:, None, None], [np.zeros_like(x), a, b, (a + b) // 2, _paeth(a, b, c)])
+    rows = np.empty((H, 1 + W * bpp), np.uint8)
+    rows[:, 0] = ftype
+    rows[:, 1:] = ((x - pred) & 255).reshape(H, W * bpp)
+    return rows
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def unfilter_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Inverse of :func:`filter_rows`: (H, 1 + W*bpp) filtered rows ->
+    (H, W, bpp) uint8 pixels.
+
+    Sub, Average and Paeth predict a pixel from its left neighbour, so a
+    row cannot be decoded in one vector step.  The decode sweeps the
+    anti-diagonals y + x = d instead: each step reconstructs every pixel
+    whose left, up and up-left neighbours the earlier steps made, each with
+    its row's filter, so a frame takes H + W - 1 vector steps."""
+    H = rows.shape[0]
+    W = (rows.shape[1] - 1) // bpp
+    ftype = rows[:, 0]
+    if ftype.max(initial=0) >= _FILTERS:
+        raise ValueError(f"PNG filter types are 0-4, got {sorted(set(ftype.tolist()))}")
+    raw = rows[:, 1:].reshape(H, W, bpp).astype(np.int16)
+    if not ftype.any():
+        return raw.astype(np.uint8)
+    # reconstructed pixels with a zero row above and a zero column left
+    rec = np.zeros((H + 1, W + 1, bpp), np.int16)
+    flat = rec.reshape(-1, bpp)
+    ft = ftype.astype(np.int64)
+    for d in range(H + W - 1):
+        ys = np.arange(max(0, d - W + 1), min(H, d + 1))
+        xs = d - ys
+        at = (ys + 1) * (W + 1) + xs + 1
+        a, b, c = flat[at - 1], flat[at - W - 1], flat[at - W - 2]
+        f = ft[ys][:, None]
+        pred = np.where(f == 1, a, np.where(f == 2, b, np.where(f == 3, (a + b) >> 1, 0)))
+        if (f == 4).any():
+            pred = np.where(f == 4, _paeth(a, b, c), pred)
+        flat[at] = (raw[ys, xs] + pred) & 255
+    return rec[1:, 1:].astype(np.uint8)
+
+
+def encode_png(frame: np.ndarray, filters=0) -> bytes:
+    """HxWx3 uint8 RGB or HxW uint8 grey -> PNG bytes; ``filters``: the
+    PNG filter type of every row (0-4), or one per row."""
     frame = np.asarray(frame)
     if frame.dtype != np.uint8 or frame.ndim not in (2, 3) or (
             frame.ndim == 3 and frame.shape[2] != 3):
         raise ValueError(f"expected HxWx3 or HxW uint8, got {frame.shape} {frame.dtype}")
     H, W = frame.shape[:2]
     channels = 1 if frame.ndim == 2 else 3
-    rows = np.zeros((H, 1 + W * channels), np.uint8)  # column 0: filter type 0
-    rows[:, 1:] = frame.reshape(H, W * channels)
+    rows = filter_rows(frame.reshape(H, W, channels), filters)
     ihdr = struct.pack(">IIBBBBB", W, H, 8, _COLOR_TYPES[channels], 0, 0, 0)
     return (_SIGNATURE + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + _chunk(b"IEND", b""))
 
 
 def read_png(path: str) -> np.ndarray:
-    """Pixels of a PNG that :func:`save_frame` wrote (8-bit RGB or grey,
-    filter 0): HxWx3 or HxW uint8."""
+    """Pixels of an 8-bit grey, RGB or RGBA PNG without interlace, any row
+    filters: HxW, HxWx3 or HxWx4 uint8, in the file's channel order."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIGNATURE:
@@ -56,13 +124,13 @@ def read_png(path: str) -> np.ndarray:
             idat.append(body)
         pos += 12 + n
     W, H, depth, ctype, _, _, interlace = header
-    channels = {v: k for k, v in _COLOR_TYPES.items()}.get(ctype)
+    channels = _READ_CHANNELS.get(ctype)
     if depth != 8 or channels is None or interlace:
-        raise ValueError(f"{path}: only 8-bit RGB or grey PNGs without interlace are read")
+        raise ValueError(f"{path}: only 8-bit grey, RGB or RGBA PNGs without interlace are read "
+                         f"(bit depth {depth}, colour type {ctype}, interlace {interlace})")
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(H, 1 + W * channels)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: rows use PNG filters other than 0")
-    return rows[:, 1:].reshape((H, W, 3) if channels == 3 else (H, W)).copy()
+    pixels = unfilter_rows(rows, channels)
+    return pixels[:, :, 0] if channels == 1 else pixels
 
 
 def save_frame(frame: np.ndarray, path: str) -> None:

@@ -57,6 +57,9 @@ def test_import_without_jax():
         "import ebfi_tpu_torch.train.checkpoint, ebfi_tpu_torch.train.exposure_trainer\n"
         "import ebfi_tpu_torch.parallel, ebfi_tpu_torch.parallel.dist\n"
         "import ebfi_tpu_torch.losses.lpips, ebfi_tpu_torch.train.__main__\n"
+        "import ebfi_tpu_torch.models.superslomo, ebfi_tpu_torch.models.library\n"
+        "import ebfi_tpu_torch.ops.dcn_v2, ebfi_tpu_torch.ops.dcn_modules\n"
+        "import ebfi_tpu_torch.data.generate, ebfi_tpu_torch.data.packager\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'ebfi_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
     )

@@ -15,6 +15,7 @@ then take the same numpy batches.  Tolerances:
 - bf16 compute (f32 master weights): loss 2e-2 relative (bf16 rounds at
   other places in the two frameworks).
 """
+import copy
 import os
 import random
 import sys
@@ -311,7 +312,23 @@ def test_trainer_matches_jax_trainer(tmp_path):
     """Both Trainers for 5 iterations on one clip (H5 for the JAX loader,
     its .npz repack for the port's), shuffled with one seed and flipped
     per item: the same batches, losses and validation, the weights within
-    the SGD bound above."""
+    the SGD bound above.
+
+    The validation loaders flip nothing, as the shipped config validates
+    (``configs/train_evfi.yml``: flips off, a fixed centre crop).  With
+    flips there, each validation item's
+    flip came from a seed drawn from python's global ``random``, which the
+    JAX loader's item threads reseed (``random.seed`` per item, in whatever
+    order the threads run) and the port's loader leaves alone: the two
+    validations flipped different items, and the best ``valid_loss`` moved
+    by up to ~1.5e-4 relative between runs (flips alone move this clip's
+    loss by ~1e-4).  The JAX loaders run one item thread, so its training
+    flips cannot race between threads either.  Two checks then hold what
+    remains: the eval steps on equal weights (the JAX-trained ones) within
+    1e-5 relative (measured ~1e-7: sums over 2048 pixels), and the best
+    ``valid_loss`` of the two runs within 1e-4 (measured ~5e-7: the
+    weights' gap, 1.2e-4 of the largest change, moves the loss that
+    little)."""
     from ebfi_tpu.data.dataloader import EBFIDataLoader as JaxLoader
     from ebfi_tpu.data.synth import write_clip_h5
     from ebfi_tpu.train.config import ConfigParser as JaxConfig
@@ -328,6 +345,8 @@ def test_trainer_matches_jax_trainer(tmp_path):
     dcfg = dataset_cfg(time_bins=4, NumPeriodPerSeq=1, SlidingWindowSeq=1)
     dcfg["data_augment"].update(enabled=True, flip=dict(enabled=True, horizontal_prob=0.5,
                                                         vertical_prob=0.5))
+    vcfg = copy.deepcopy(dcfg)
+    vcfg["data_augment"]["flip"]["enabled"] = False
     jm, params, tm = _models(use_gt_ex=True)
     init = _port_params(params)
     opt = _trainer_cfg(tmp_path, "x")
@@ -337,7 +356,8 @@ def test_trainer_matches_jax_trainer(tmp_path):
     random.seed(0)
     jt = JaxTrainer(JaxConfig(_trainer_cfg(tmp_path, "jax"), run_id="j"), jm,
                     create_train_state(jm, params, tx), jax_train_step(jm), jax_eval_step(jm),
-                    JaxLoader([h5, h5], dcfg, **loaders), JaxLoader([h5], dcfg, batch_size=2))
+                    JaxLoader([h5, h5], dcfg, num_threads=1, **loaders),
+                    JaxLoader([h5], vcfg, batch_size=2, num_threads=1))
     jt.train()
 
     updater, _ = build_optimizer(tm, opt["optimizer"], opt["lr_scheduler"], lr_min=1e-6)
@@ -345,11 +365,17 @@ def test_trainer_matches_jax_trainer(tmp_path):
     pt = Trainer(ConfigParser(_trainer_cfg(tmp_path, "port"), run_id="p"), tm,
                  TrainState(tm, updater), make_train_step(), make_eval_step(),
                  EBFIDataLoader([npz, npz], dcfg, **loaders),
-                 EBFIDataLoader([npz], dcfg, batch_size=2))
+                 EBFIDataLoader([npz], vcfg, batch_size=2))
     pt.train()
 
     assert pt.state.step == int(jt.state.step) == 5
     jl, tl = jt.train_metrics._totals["train_loss"], pt.train_metrics._totals["train_loss"]
     assert abs(tl - jl) <= 1e-4 * abs(jl)
-    assert abs(pt.mnt_best - jt.mnt_best) <= 1e-4 * abs(jt.mnt_best)
     _assert_params_close(tm, jt.state.params, init)
+    # the eval steps on equal weights: the port's on the JAX-trained ones
+    jax_valid = jt._valid()["valid_loss"]
+    equal = copy.deepcopy(tm)
+    equal.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jt.state.params)))
+    pt.state.model = equal
+    assert abs(pt._valid()["valid_loss"] - jax_valid) <= 1e-5 * abs(jax_valid)
+    assert abs(pt.mnt_best - jt.mnt_best) <= 1e-4 * abs(jt.mnt_best)
