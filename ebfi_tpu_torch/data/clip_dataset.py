@@ -320,10 +320,16 @@ class _ClipReader:
 class NpzClipDataset(_ClipReader):
     """Synthetic-blur dataset over one clip: periods of NumFramePerPeriod
     sharp frames, the blurry frame the mean of a period's first exposure
-    frames, exposure regimes Fixed, Auto and Custom.  (The training-only
-    NeedNeighborGT of the JAX dataset is not ported.)"""
+    frames, exposure regimes Fixed, Auto and Custom.  The training-only
+    ``NeedNeighborGT`` of the JAX dataset is not ported: ``True`` raises."""
 
     def __init__(self, path: str, config: dict):
+        if config.get("NeedNeighborGT", False):
+            raise ValueError(
+                f"{path}: NeedNeighborGT: True asks for the neighbouring GT frames "
+                "(item 'neighbor'), which this package does not yield yet (ROADMAP A5): "
+                "set NeedNeighborGT: False"
+            )
         super().__init__(path, config)
         self.num_frame_per_period = config["NumFramePerPeriod"]
         self.deblur_pretrain = config.get("DeblurPretrain", False)

@@ -16,6 +16,7 @@ flows and warps are NHWC, as in the JAX package.
 """
 from __future__ import annotations
 
+import datetime
 import math
 from typing import Dict, List, Sequence, Tuple
 
@@ -210,11 +211,21 @@ class SuperSloMo:
 # ---------------------------------------------------------------------- checkpoints
 
 
+# Non-tensor metadata the upstream Super-SloMo training script stores beside
+# the two state dicts: a ``datetime`` timestamp (strings, ints, floats and
+# lists of them load under ``weights_only`` without an allowlist).
+CHECKPOINT_METADATA_TYPES = [datetime.datetime, datetime.date, datetime.timedelta]
+
+
 def load_checkpoint(path: str, device="cpu") -> SuperSloMo:
     """The published ``SuperSloMo.ckpt`` (keys ``state_dictFC`` /
     ``state_dictAT``, upsampler.py:66-68), loaded as it is: the
-    counterpart of the JAX package's ``convert_torch_checkpoint``."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    counterpart of the JAX package's ``convert_torch_checkpoint``.  It
+    loads with ``weights_only=True``, allowing the training script's
+    metadata types (:data:`CHECKPOINT_METADATA_TYPES`) and refusing any
+    other class."""
+    with torch.serialization.safe_globals(CHECKPOINT_METADATA_TYPES):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
     flow, interp = SloMoUNet(6, 4), SloMoUNet(20, 5)
     flow.load_state_dict(ckpt["state_dictFC"], strict=True)
     interp.load_state_dict(ckpt["state_dictAT"], strict=True)

@@ -163,6 +163,25 @@ def test_rescaling_config_raises_naming_the_resolutions(clip):
         ds.get(0, seed=0)
 
 
+@pytest.mark.parametrize("need", ["absent", False, True])
+def test_need_neighbor_gt_raises_until_ported(clip, need):
+    """C5: NeedNeighborGT: True asks for the 'neighbor' item the JAX
+    dataset yields and this package does not: it raises, naming the option
+    and ROADMAP A5.  False or absent builds as before, and so does 'fast'
+    (it changes the loader's speed only)."""
+    h5, npz = clip
+    cfg = _config(fast=True)
+    if need != "absent":
+        cfg["NeedNeighborGT"] = need
+    if need is True:
+        with pytest.raises(ValueError, match=r"NeedNeighborGT.*A5"):
+            NpzClipDataset(npz, cfg)
+        return
+    got_ds, want_ds = NpzClipDataset(npz, cfg), H5ClipDataset(h5, cfg)
+    assert len(got_ds) == len(want_ds) > 0
+    assert_items_equal(got_ds.get(0, seed=5), want_ds.get(0, seed=5))
+
+
 def test_write_clip_npz_equals_repacked_h5(clip, tmp_path):
     _, npz = clip
     direct = str(tmp_path / "direct.npz")

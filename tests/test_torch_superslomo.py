@@ -17,7 +17,9 @@ Tolerances:
   "Not faults"), and the test then asserts only the pair's frames and
   times that both made.
 """
+import datetime
 import math
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -160,6 +162,43 @@ def test_checkpoint_round_trip_with_the_jax_converter(tmp_path):
         assert all(np.array_equal(a, b) for a, b in zip(jl, wl))
         sd = net.state_dict()
         assert all(torch.equal(sd[k], v) for k, v in (fsd if which == "flow" else isd).items())
+
+
+class _Arbitrary:
+    """A class no checkpoint loader should instantiate."""
+
+
+def _upstream_checkpoint(fsd, isd, **extra):
+    """A checkpoint as the upstream Super-SloMo training script saves it:
+    metadata beside the two state dicts."""
+    return {
+        "Detail": "End to end Super SloMo.", "epoch": 199,
+        "timestamp": datetime.datetime(2018, 9, 14, 11, 5, 42, 123456),
+        "trainBatchSz": 6, "validationBatchSz": 10, "learningRate": 1e-05,
+        "loss": [[0.31, 0.27], [0.22]], "valLoss": [0.25, 0.21], "valPSNR": [29.4, 30.1],
+        "state_dictFC": fsd, "state_dictAT": isd, **extra,
+    }
+
+
+@pytest.mark.parametrize("payload", ["upstream_metadata", "arbitrary_class"])
+def test_checkpoint_with_training_metadata_loads_and_other_classes_do_not(tmp_path, payload):
+    """C4: ``load_checkpoint`` keeps ``weights_only=True``; the training
+    script's metadata (a datetime among strings, ints, floats and lists of
+    floats) loads into the same UNets, and a pickled class of any other
+    kind is still refused."""
+    fsd, isd = superslomo_params_from_jax(_params(5, flow_bias=False))
+    path = str(tmp_path / "SuperSloMo.ckpt")
+    extra = {"extra": _Arbitrary()} if payload == "arbitrary_class" else {}
+    torch.save(_upstream_checkpoint(fsd, isd, **extra), path)
+    if payload == "arbitrary_class":
+        with pytest.raises(pickle.UnpicklingError, match="_Arbitrary"):
+            tss.load_checkpoint(path)
+        return
+    port = tss.load_checkpoint(path)
+    for sd, net in ((fsd, port.flow_net), (isd, port.interp_net)):
+        got = net.state_dict()
+        assert sorted(got) == sorted(sd)
+        assert all(torch.equal(got[k], v) for k, v in sd.items())
 
 
 def test_init_unet_draws_from_the_generator():
