@@ -14,17 +14,24 @@ seconds elapsed:
    path's shapes beside its bound, the plain version's time and, for B2
    and B3, cuDNN's bf16 time for their bank conv alone (a yardstick: the
    port never calls it); then B3, B2 and B2p in f32 at the same shapes,
-   the CUDA-core route (``csrc/mod_fac.cu``), checked and timed beside its
-   bound at 67 TFLOP/s;
+   the 3xTF32 tensor-core route (``csrc/mod_fac.cu``), which must take the
+   ``wgmma_3xtf32`` route alone, checked against the plain version (cuDNN
+   f32 without TF32, plain FAC) and timed beside two bounds (3xTF32 on the
+   tensor cores, three TF32 products per product at 495 TFLOP/s, and the
+   earlier CUDA-core bound at 67 TFLOP/s) and cuDNN's f32 bank conv alone
+   (TF32 off; a yardstick the port never calls);
 4. the serving engine at 720x1280 with N = 16 timestamps and the shipped
    model's widths (random weights from a seed): (a) bf16 hoisted
    ``interpolate`` through kernel B2, (b) bf16 ``forward`` through B3,
-   (c) f32 unhoisted ``interpolate`` through B1; each path's launch counts
-   are reset before it and checked after it, and (a) and (b) must have
-   taken the bf16 tensor-core route.  Then a profile of one steady
-   request of (a): the top device kernels and their share of it.  Then
-   correctness: hoisted against unhoisted at 720p in bf16, and the card
-   against the CPU on a small input in f32;
+   (c) f32 unhoisted ``interpolate`` through B1, (d) f32 hoisted
+   ``interpolate`` (``fast_math=True``) through B2 on the 3xTF32 route;
+   each path's launch counts are reset before it and checked after it,
+   (a) and (b) must have taken the bf16 tensor-core route and (d) the
+   3xTF32 one.  Then a profile of one steady request of (a): the top
+   device kernels and their share of it.  Then correctness: (d) against
+   (c) on the first request (f32 hoisted and fused against unhoisted),
+   hoisted against unhoisted at 720p in bf16, and the card against the CPU
+   on a small input in f32;
 5. the inference CLI on the card: (a) ``ebfi_tpu_torch.infer.cli.main``
    serves a synthetic 720x1280 clip (2 blurry frames x 16 timestamps) in
    bf16 with the shipped model from a port checkpoint, through B2 alone;
@@ -93,7 +100,8 @@ included, and B3's in run (b); ``launches_dp_nccl``: the same in phase 7
 (a); ``launches_adversarial``: the same in phase 8 (a)'s runs in this
 process; ``launches_generate``: all kernels' launches in phase 9 (a)'s
 generator run, 0: no FAC kernel is on that path; ``f32_route``: B2, B2p and
-B3's f32 numbers from phase 3); the last line is ``{"ok": true,
+B3's f32 numbers from phase 3, with their launches in phase 4 (d)); the
+last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises and
 the run exits non-zero; without a CUDA card it exits 2 and prints no
 result.
@@ -119,7 +127,8 @@ H, W, N = 720, 1280, 16  # one request: a 720p frame, its events, 16 timestamps
 REQUESTS = 3
 C, K = 64, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 tensor cores
+# f32 CUDA cores; bf16 and TF32 tensor cores (dense)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 # kernel vs plain version: f32 sums reassociate (1152-deep dots); in bf16
 # the plain version runs in f32 on the same bf16 inputs and the kernel's
 # output (and B2's ff scratch) round to bf16, 2^-9 relative each
@@ -330,13 +339,17 @@ def phase_kernels(torch, kern):
 
 
 def phase_f32_route(torch, kern, cases, results):
-    """B3, B2 and B2p in f32 at the serving shapes: the CUDA-core route
-    (``csrc/mod_fac.cu``), which no serving path launches (path (c) runs
-    the unfused Modification through B1) and training reaches only in a
-    FastVariants run's f32 eval steps.  Checked against the plain version,
-    timed beside its bound at 67 TFLOP/s and the plain version's time (B2's
-    in chunks of 4 timestamps, as the check runs it); the launches must all
-    take the ``simt_f32`` route.  Adds ``f32_route`` to each result."""
+    """B3, B2 and B2p in f32 at the serving shapes: the 3xTF32 tensor-core
+    route (``csrc/mod_fac.cu``), which serving path (d) launches (B2) and
+    training reaches in a FastVariants run's f32 eval steps (B3).  Checked
+    against the plain version, timed beside two bounds -- 3xTF32 on the
+    tensor cores (three TF32 products per product at 495 TFLOP/s, or the
+    bytes once), the one the share is read against, and the CUDA-core f32
+    bound at 67 TFLOP/s of the earlier route -- the plain version's time
+    (B2's in chunks of 4 timestamps, as the check runs it) and cuDNN's f32
+    bank conv alone without TF32 (``library_ms``: a yardstick, not the same
+    function, never called by the port); the launches must all take the
+    ``wgmma_3xtf32`` route.  Adds ``f32_route`` to each result."""
     hm, wm = H // 2, W // 2
     for name in ("B3_mod_fac", "B2_mod_fac_shared", "B2p_mod_fac_shared_packed"):
         cs = cases[name]
@@ -344,25 +357,34 @@ def phase_f32_route(torch, kern, cases, results):
         args = cs["args"](B, hm, wm, torch.float32, n)
         shape = f"B={B} N={n} {hm}x{wm}x{C} K={K}"
         kern.reset_launch_counts()
-        err = compare(torch, cs, args, f"{name} float32 {shape} (serving shape, CUDA-core route)")
+        err = compare(torch, cs, args, f"{name} float32 {shape} (serving shape, 3xTF32 route)")
         with torch.inference_mode():
-            ms = cuda_ms(lambda: cs["fn"](*args), reps=2)
+            ms = cuda_ms(lambda: cs["fn"](*args), reps=3)
             plain_ms = cuda_ms(lambda: plain_version(torch, cs, args), reps=1)
+            cudnn_ms = (None if cs.get("no_cudnn")
+                        else bank_conv_cudnn_ms(torch, args, cs["shared"]))
         routes = kern.route_counts()["mod_fac_shared" if cs["shared"] else "mod_fac"]
-        if routes["simt_f32"] <= 0 or routes["wgmma_bf16"]:
+        if routes["wgmma_3xtf32"] <= 0 or any(v for r, v in routes.items()
+                                              if r != "wgmma_3xtf32"):
             raise AssertionError(f"{name} float32: launches took another route ({routes})")
         nbytes, flops = work(name, B, n, hm, wm, "float32")
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["float32"] * 1e3
-        bound = max(t_bytes, t_ops)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_tc, t_simt = 3 * flops / PEAK_FLOPS["tf32"] * 1e3, flops / PEAK_FLOPS["float32"] * 1e3
+        bound_tc, bound = max(t_bytes, t_tc), max(t_bytes, t_simt)
         results[name]["f32_route"] = dict(
-            source="ebfi_tpu_torch/csrc/mod_fac.cu", shape=shape, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by="bytes" if t_bytes >= t_ops else "operations",
-            max_abs_err=err, share_of_bound=bound / ms)
-        log(f"time {name} float32 {shape} (CUDA-core route, simt_f32): {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms{' (4 timestamps at a time)' if cs['shared'] else ''}, bound "
-            f"{bound:.3f} ms at 67 TFLOP/s ({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound / ms:.1f} "
-            f"% of the bound); launches on the paths: 0 in serving (route counts of phase 4), 0 "
-            f"in phase 6 (b) (validation off), once per eval forward of a FastVariants run")
+            source="ebfi_tpu_torch/csrc/mod_fac.cu", route="wgmma_3xtf32", shape=shape, ms=ms,
+            plain_ms=plain_ms, bound_tc_ms=bound_tc,
+            bound_tc_by="bytes" if t_bytes >= t_tc else "operations",
+            bound_ms=bound, bound_by="bytes" if t_bytes >= t_simt else "operations",
+            library_ms=cudnn_ms, max_abs_err=err, share_of_bound_tc=bound_tc / ms,
+            share_of_bound=bound / ms)
+        log(f"time {name} float32 {shape} (3xTF32 route, wgmma_3xtf32): {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms{' (4 timestamps at a time)' if cs['shared'] else ''}; bound "
+            f"{bound_tc:.3f} ms as 3xTF32 at 495 TFLOP/s ({100 * bound_tc / ms:.1f} % of it), "
+            f"{bound:.3f} ms at the CUDA cores' 67 TFLOP/s ({100 * bound / ms:.1f} %); "
+            f"{flops / ms / 1e9:.1f} TFLOP/s of f32 products"
+            + ("" if cudnn_ms is None else
+               f"; cuDNN f32 bank conv alone, TF32 off: {cudnn_ms:.3f} ms"))
         del args
         torch.cuda.empty_cache()
 
@@ -509,13 +531,36 @@ def phase_engine(torch, kern):
     routes["B3_mod_fac"] = routes_b["mod_fac"]
     del bf16
     f32 = InferenceEngine(model, precision="f32", multi_chunk=4)
-    _, counts, _ = serve(
+    outs_c, counts, _ = serve(
         torch, kern, "(c) f32 unhoisted interpolate(outputs='final') N=16, multi_chunk=4 "
         "(bounds the materialised f32 bank to 4x360x640x1600, 5.9 GB)", "fac",
         lambda f, e, ts: f32.interpolate(f, e, ts, outputs="final")[1], requests, N,
     )
     launches["B1_fac"] = counts["fac"]
     del f32
+    torch.cuda.empty_cache()
+    f32_fast = InferenceEngine(model, precision="f32", fast_math=True)
+    outs_d, counts, _ = serve(
+        torch, kern, "(d) f32 hoisted interpolate(outputs='final') N=16, fast_math=True "
+        "(fused Modification through B2 on the 3xTF32 route)", "mod_fac_shared",
+        lambda f, e, ts: f32_fast.interpolate(f, e, ts, outputs="final")[1], requests, N,
+        route="wgmma_3xtf32",
+    )
+    f32_launches = {"B2_mod_fac_shared": counts["mod_fac_shared"], "B3_mod_fac": 0,
+                    "B2p_mod_fac_shared_packed": 0}  # (d)'s; no path launches B3 or B2p in f32
+    del f32_fast
+    # (d) against (c) on the first request: the same f32 model, hoisted with
+    # B2's 3xTF32 bank conv and f32 ff scratch against unhoisted with cuDNN's
+    # f32 bank conv (TF32 off) and B1; f32-grade products on both sides, so
+    # the 64x96 card-vs-CPU check's 1e-3 holds here too
+    diff = (outs_d[0] - outs_c[0]).abs()
+    max_d, mean_d = diff.max().item(), diff.mean().item()
+    ok = max_d <= 1e-3
+    log(f"check (d) f32 hoisted+fused vs (c) f32 unhoisted, 720x1280 N=16: max_abs={max_d:.2e} "
+        f"(tol 1e-3) mean_abs={mean_d:.2e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the f32 hoisted (3xTF32) and unhoisted engines disagree")
+    del outs_c, outs_d, diff
     torch.cuda.empty_cache()
 
     # hoisted (B2) against unhoisted (B1) on the first request, both bf16
@@ -546,7 +591,7 @@ def phase_engine(torch, kern):
             f"max_abs={err:.2e} (tol 1e-3) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("the card and the CPU disagree")
-    return launches, routes
+    return launches, routes, f32_launches
 
 
 # ---------------------------------------------------------------------- CLI
@@ -660,7 +705,7 @@ def phase_cli(torch, kern):
             "fetch: checkpoint load, engine build)")
         ok = (n_blurry == 2 and len(frames) == N * n_blurry
               and counts == {"fac": 0, "mod_fac": 0, "mod_fac_shared": n_blurry}
-              and routes["mod_fac_shared"] == {"wgmma_bf16": n_blurry, "simt_f32": 0}
+              and routes["mod_fac_shared"] == {"wgmma_bf16": n_blurry, "wgmma_3xtf32": 0}
               and kern.modification_fac_fused_shared.launches_packed == 0
               and all(np.isfinite(v) for v in means.values())
               and read_means(os.path.join(out, "inference_all.yml")) == means)
@@ -922,9 +967,9 @@ def phase_train(torch, kern):
         losses = trainer.train_metrics
         ok = (trainer.state.step == TRAIN_ITERS
               and counts == {"fac": 0, "mod_fac": TRAIN_ITERS, "mod_fac_shared": 0}
-              and routes["mod_fac"] == {"wgmma_bf16": TRAIN_ITERS, "simt_f32": 0}
+              and routes["mod_fac"] == {"wgmma_bf16": TRAIN_ITERS, "wgmma_3xtf32": 0}
               and np.isfinite(losses.avg("train_loss")))
-        log(f"check train (b): B3 once per step, all on wgmma_bf16, none on simt_f32, no B1; "
+        log(f"check train (b): B3 once per step, all on wgmma_bf16, none on wgmma_3xtf32, no B1; "
             f"mean logged loss {losses.avg('train_loss'):.4e} finite {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("train (b): the bf16 run did not go as expected")
@@ -1407,7 +1452,7 @@ def phase_data_parallel(torch, kern, single):
             ok = (ra["world"] == 1 and r["step"] == TRAIN_ITERS and r["launches"] == want
                   and ar is not None
                   and (route is None or r["routes"]["mod_fac"] == {route: TRAIN_ITERS,
-                                                                   "simt_f32": 0}))
+                                                                   "wgmma_3xtf32": 0}))
             ms1 = single[f"{'a' if label == 'f32' else 'b'}_ms"]
             log(f"check train 7 (a) {label} NCCL world 1: {r['step']} steps, launches "
                 f"{r['launches']}, routes {r['routes']}; steady {r['ms']:.2f} ms/iteration, "
@@ -1761,7 +1806,7 @@ def phase_adversarial(torch, kern, single):
                 np.isfinite(m.avg(k)) for k in ("train_loss", "g_loss", "d_loss"))
             ok = (trainer.state.step == TRAIN_ITERS and counts == expected(label, n_eval)
                   and (label == "f32" or routes["mod_fac"] == {"wgmma_bf16": TRAIN_ITERS,
-                                                                "simt_f32": 0})
+                                                                "wgmma_3xtf32": 0})
                   and moved == total and finite)
             log(f"check train 8 (a) {label} STGAN: {trainer.state.step} steps, launches {counts} "
                 f"(as phase 6), routes {routes}; discriminator tensors moved {moved}/{total}; "
@@ -2189,7 +2234,9 @@ def main() -> int:
     build.load_library()
 
     results = phase_kernels(torch, kern)
-    launches, routes = phase_engine(torch, kern)
+    launches, routes, f32_launches = phase_engine(torch, kern)
+    for name, n in f32_launches.items():
+        results[name]["f32_route"]["launches"] = n
     phase_cli(torch, kern)
     single = phase_train(torch, kern)
     train_launches = single["train_launches"]

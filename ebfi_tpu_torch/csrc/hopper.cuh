@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, 1-D bulk
 // copies (no tensor map), cp.async with zero fill, warpgroup register
-// rebalancing and wgmma with both operands in shared memory.
+// rebalancing, wgmma with both operands in shared memory (bf16), and
+// TF32 wgmma with A in registers plus the f32 -> TF32 split (3xTF32).
 //
 // Shared-memory matrix descriptors (PTX ISA, "Matrix Descriptor Format"):
 // bits 0-13 start address >> 4, 16-29 leading-dimension byte offset >> 4,
@@ -12,6 +13,9 @@
 // - 128-byte swizzle: rows of 64 bf16 (128 bytes), 8-row atoms of 1024
 //   bytes, the 16-byte chunk j of row r stored at chunk j ^ (r % 8);
 //   SBO = 1024, LBO unused (1); a k16 step advances the start by 32 bytes.
+// TF32 is K-major only (no transpose bits) and one k8 step is 32 bytes
+// deep, as bf16's k16: a no-swizzle B operand is two core matrices of
+// 8 rows x 4 tf32 along K.
 #pragma once
 #include <stdint.h>
 
@@ -118,9 +122,9 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 
 // keep the compiler from moving accumulator reads or writes across an
 // asynchronous wgmma it cannot see into
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // D (64x64 f32, registers) = A (64x16 bf16, smem) * B (16x64 bf16, smem),
@@ -142,6 +146,71 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// ---------------------------------------------------------------- TF32
+
+// f32 -> TF32 (10 explicit mantissa bits, low 13 bits zero), rounded to
+// nearest with ties away from zero.  wgmma ignores an operand's low 13
+// bits, so every TF32 operand passes through this first.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + r with hi = tf32(x), lo = tf32(x - hi) (x - hi is exact in
+// f32), |r| <= 2^-22 |x|: the two halves of 3xTF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// D (64xN f32, registers) = A (64x8 tf32, registers) * B (8xN tf32,
+// smem, K-major), plus D when accumulate != 0, N = 64 or 128.  A register
+// i of a thread (lane l of warp w of the warpgroup) holds row
+// 16w + l/4 + 8*(i%2), column l%4 + 4*(i/2) (CUTLASS's
+// SM90_64x64x8_F32TF32TF32_RS_TN, GMMA::ALayout_64x8); D as in
+// wgmma_m64n64k16_ss, N/2 registers (column 8*(i/4) + 2*(l%4) + i%2).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                        uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 }  // namespace hopper

@@ -6,22 +6,30 @@ B3 replaces ``ebfi_tpu/ops/pallas/mod_fac.py::_kernel`` (public
 store of ``modification_fac_fused_shared_packed``, B2p).
 
 Bound on the H100: operations.  The 3x3 bank conv (depth 9*2C = 1152 into
-K*K*C = 1600 channels) is hundreds of flops per byte.  Both kernels keep
-the TPU kernels' one idea, that the bank never reaches device memory, and
-route by dtype:
+K*K*C = 1600 channels) is hundreds of flops per byte, so both kernels run
+it as an implicit GEMM on the tensor cores, keep the TPU kernels' one idea
+(the bank never reaches device memory), and route by dtype:
 
-- bf16 (serving): ``csrc/mod_fac_wgmma.cu``, the bank conv as an implicit
-  GEMM on the tensor cores (wgmma), weights packed here by
-  :func:`pack_bank_weight` into swizzled 64x64 tiles and streamed through a
-  shared-memory ring, epilogue (bias or ff half, leaky ReLU, FAC) in
-  registers.  B2 computes the ff half plus bias once per frame into a
-  tap-major bf16 scratch (the TPU kernel's band scratch rounds it the same
-  way), then two timestamps per block share every weight tile.
-- f32: ``csrc/mod_fac.cu``, the same fusion on the CUDA cores in f32 (the
-  card-versus-CPU f32 checks need f32 products; TF32 would not keep them).
+- bf16 (serving): ``csrc/mod_fac_wgmma.cu``, wgmma with both operands in
+  shared memory, weights packed here by :func:`pack_bank_weight` into
+  swizzled 64x64 tiles and streamed through a shared-memory ring,
+  epilogue (bias or ff half, leaky ReLU, FAC) in registers.  B2 computes
+  the ff half plus bias once per frame into a tap-major bf16 scratch (the
+  TPU kernel's band scratch rounds it the same way), then two timestamps
+  per block share every weight tile.
+- f32: ``csrc/mod_fac.cu``, the same design on TF32 wgmma as 3xTF32: every
+  product a*b is taken as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with x_hi =
+  tf32(x), x_lo = tf32(x - x_hi) (:func:`split_tf32`), summed into one f32
+  accumulator, which keeps f32-grade products (TF32 alone keeps about
+  three decimal digits) at a third of the TF32 rate, 165 TFLOP/s.  The
+  weights are packed here in f32 by :func:`pack_bank_weight_tf32` (two
+  taps per 128-wide tile) and split on chip; the activations are split in
+  registers (A of the register-A wgmma).  The B2 scratch stays f32, the
+  input dtype.
 
-A bf16 CUDA call the tensor-core kernel cannot take (C != 64, K > 5,
-data not 16-byte aligned) raises; nothing falls back to another route.
+Both routes take C = 64 and odd K <= 5 (the halo's border of 2 covers a
+5x5 FAC).  A CUDA call either takes its route or raises: nothing falls
+back to another route.
 
 Training: the TPU kernels have no backward kernels; their ``custom_vjp``s
 recompute through the XLA twins.  Here ``torch.autograd.Function``s do the
@@ -38,8 +46,9 @@ from ._common import check_inputs, needs_grad, on_device, plain_vjp, stream_hand
 from .build import check, load_library
 
 KERNEL_CHANNELS = 64  # the CUDA kernels' channel tile: C must equal it
-WGMMA_MAX_K = 5  # the bf16 kernel's halo border (2) covers a 5x5 FAC at most
+MAX_K = 5  # both kernels' halo border (2) covers a 5x5 FAC at most
 TILE = 64  # packed weight tiles are TILE x TILE (output x input channels)
+STEP = 8  # depth of one TF32 wgmma step (32 bytes, as bf16's k16)
 
 
 def _conv3x3(x: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
@@ -110,18 +119,76 @@ def _swizzle(w):
     return torch.gather(w, -2, idx.expand(*w.shape[:-3], TILE, TILE // 8, 8))
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 as the f32 kernel converts (``cvt.rna.tf32.f32``): keep
+    10 explicit mantissa bits, round to nearest with ties away from zero
+    (add half of the dropped 13 bits' range to the magnitude, then clear
+    them; a carry moves into the exponent, and past the largest finite
+    value into infinity).  NaN stays NaN.  Returned as f32."""
+    bits = x.float().contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isnan(x), x.float(), rounded)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi): the two halves of
+    3xTF32 (x - hi is exact in f32; hi + lo gives x back to 2^-21 of it)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def _tf32_order(cin: int) -> torch.Tensor:
+    """Input channel of each logical depth index of the f32 kernel: within
+    a k8 step, logical k takes channel 2*(k%4) + k//4, so that the two
+    values of a register-A fragment row (k = l%4 and l%4 + 4) are adjacent
+    channels, one 8-byte load."""
+    k = torch.arange(cin)
+    return (k // STEP) * STEP + 2 * (k % 4) + (k % STEP) // 4
+
+
+def pack_bank_weight_tf32(wk: torch.Tensor) -> torch.Tensor:
+    """Pack an HWIO bank-conv weight (3, 3, Cin, K*K*64), Cin a multiple of
+    64, into the f32 kernel's step tiles: (ceil(K*K/2), 9*Cin/64, 8, 1024)
+    f32.  Tap pair p (taps 2p and 2p+1, the last one zero for an odd K*K)
+    is major, then chunk kc = half*9 + (dy*3 + dx) for input channels
+    [64*half, 64*half + 64) at 3x3 offset (dy, dx), then the k8 step s
+    (channels 8s .. 8s+7 of the chunk).  Element (n, cc) of a step (n < 64:
+    bank channel n of tap 2p, else n - 64 of tap 2p+1; cc: channel of the
+    step's 8) sits at offset ((n // 8)*2 + cc % 2)*32 + (n % 8)*4 + cc // 2:
+    8x4 core matrices of 128 contiguous bytes, two along the depth (LBO
+    128 bytes) and sixteen along n (SBO 256 bytes), the no-swizzle K-major
+    layout wgmma reads for B, in the logical depth order of
+    :func:`_tf32_order`.  The values stay f32: the kernel splits them into
+    TF32 hi and lo on chip."""
+    cin, kkc = wk.shape[2], wk.shape[3]
+    nh, pairs = cin // TILE, (kkc // TILE + 1) // 2
+    w = F.pad(wk.float(), (0, 2 * pairs * TILE - kkc))
+    # (tap9, half, s, cc//2, cc%2, pair, n//8, n%8)
+    w = w.reshape(9, nh, TILE // STEP, 4, 2, pairs, 2 * TILE // STEP, STEP)
+    w = w.permute(5, 1, 0, 2, 6, 4, 7, 3)  # (pair, half, tap9, s, n//8, cc%2, n%8, cc//2)
+    return w.reshape(pairs, nh * 9, TILE // STEP, 2 * TILE * STEP).contiguous()
+
+
+def unpack_bank_weight_tf32(packed: torch.Tensor, taps: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bank_weight_tf32` for a bank of ``taps``
+    taps: back to HWIO (3, 3, Cin, taps*64)."""
+    pairs, nkc = packed.shape[:2]
+    nh = nkc // 9
+    w = packed.reshape(pairs, nh, 9, TILE // STEP, 2 * TILE // STEP, 2, STEP, 4)
+    w = w.permute(2, 1, 3, 7, 5, 0, 4, 6)  # (tap9, half, s, cc//2, cc%2, pair, n//8, n%8)
+    return w.reshape(3, 3, nh * TILE, 2 * pairs * TILE)[..., :taps * TILE]
+
+
 def cuda_kernel_takes(C: int, K: int, dtype: torch.dtype, device) -> bool:
     """Whether B2/B3 take a call with C channels, kernel_size K and tensors
     of this dtype on this device.  The plain versions (CPU tensors) take
-    every C and K; the CUDA kernels take C = 64, odd K, f32 or bf16, and
-    in bf16 K <= 5.  Callers that must not raise gate on this."""
+    every C and K; the CUDA kernels take C = 64, odd K <= 5, f32 or bf16.
+    Callers that must not raise gate on this."""
     if torch.device(device).type != "cuda":
         return True
-    if C != KERNEL_CHANNELS or K % 2 != 1:
+    if C != KERNEL_CHANNELS or K % 2 != 1 or K > MAX_K:
         return False
-    if dtype == torch.bfloat16:
-        return K <= WGMMA_MAX_K
-    return dtype == torch.float32
+    return dtype in (torch.bfloat16, torch.float32)
 
 
 def _check_weights(what, C, K, wk, bk):
@@ -135,19 +202,28 @@ def _check_weights(what, C, K, wk, bk):
         )
 
 
+# dtype -> route; route -> (C entry point of B3, of B2)
+ROUTES = {torch.bfloat16: "wgmma_bf16", torch.float32: "wgmma_3xtf32"}
+_ENTRIES = {
+    "wgmma_bf16": ("ebfi_mod_fac_fused_wgmma", "ebfi_mod_fac_shared_wgmma"),
+    "wgmma_3xtf32": ("ebfi_mod_fac_fused", "ebfi_mod_fac_shared"),
+}
+
+
+def _pack(route, wk):
+    """The route's weight tiles (its packer looked up when called)."""
+    return pack_bank_weight(wk) if route == "wgmma_bf16" else pack_bank_weight_tf32(wk)
+
+
 def _route(what, dtype, K) -> str:
     """The kernel route of a CUDA call whose weights passed
-    :func:`_check_weights`: the tensor-core kernel for bf16, the CUDA-core
-    kernel for f32.  Raises for what neither takes."""
-    if dtype == torch.bfloat16:
-        if K > WGMMA_MAX_K:
-            raise ValueError(
-                f"{what}: the bf16 kernel takes kernel_size <= {WGMMA_MAX_K}, got {K}"
-            )
-        return "wgmma_bf16"
-    if dtype == torch.float32:
-        return "simt_f32"
-    raise TypeError(f"{what}: dtype {dtype} not supported (float32 or bfloat16)")
+    :func:`_check_weights`: the bf16 tensor-core kernel, or the 3xTF32
+    tensor-core kernel for f32.  Raises for what neither takes."""
+    if dtype not in ROUTES:
+        raise TypeError(f"{what}: dtype {dtype} not supported (float32 or bfloat16)")
+    if K > MAX_K:
+        raise ValueError(f"{what}: the CUDA kernels take kernel_size <= {MAX_K}, got {K}")
+    return ROUTES[dtype]
 
 
 def _count(fn, route, packed=False):
@@ -167,26 +243,17 @@ def _launch_fused(ev, ff, wk, bk, kernel_size: int) -> torch.Tensor:
         raise ValueError(f"ff shape {tuple(ff.shape)} != ev shape {tuple(ev.shape)}")
     b32 = bk.float().contiguous()
     out = torch.empty_like(ev)
+    entry = _ENTRIES[route][0]
     lib = load_library()
     with on_device(ev.device):  # the weight pack and the launch
-        if route == "wgmma_bf16":
-            wp = pack_bank_weight(wk.to(ev.dtype))
-            check_inputs(what, {"ev": ev, "ff": ff, "wk": wp}, ev.dtype)
-            check_inputs(what, {"bk": b32}, torch.float32)
-            err = lib.ebfi_mod_fac_fused_wgmma(
-                ev.data_ptr(), ff.data_ptr(), wp.data_ptr(), b32.data_ptr(), out.data_ptr(),
-                B, H, W, C, K, stream_handle(ev.device),
-            )
-            check(lib, err, "ebfi_mod_fac_fused_wgmma")
-        else:
-            w2 = wk.to(ev.dtype).reshape(9 * 2 * C, K * K * C).contiguous()
-            check_inputs(what, {"ev": ev, "ff": ff, "wk": w2}, ev.dtype)
-            check_inputs(what, {"bk": b32}, torch.float32)
-            err = lib.ebfi_mod_fac_fused(
-                ev.data_ptr(), ff.data_ptr(), w2.data_ptr(), b32.data_ptr(), out.data_ptr(),
-                B, H, W, C, K, stream_handle(ev.device),
-            )
-            check(lib, err, "ebfi_mod_fac_fused")
+        wp = _pack(route, wk.to(ev.dtype))
+        check_inputs(what, {"ev": ev, "ff": ff, "wk": wp}, ev.dtype)
+        check_inputs(what, {"bk": b32}, torch.float32)
+        err = getattr(lib, entry)(
+            ev.data_ptr(), ff.data_ptr(), wp.data_ptr(), b32.data_ptr(), out.data_ptr(),
+            B, H, W, C, K, stream_handle(ev.device),
+        )
+        check(lib, err, entry)
     _count(modification_fac_fused, route)
     return out
 
@@ -221,10 +288,10 @@ class _ModFacFunction(torch.autograd.Function):
 def modification_fac_fused(ev, ff, wk, bk, kernel_size: int = 5) -> torch.Tensor:
     """lrelu(conv3x3(concat(ev, ff)) + bk) bank, FAC-applied to ev, with the
     bank kept on chip.  ev, ff (B, H, W, C); wk (3, 3, 2C, K*K*C) HWIO with
-    tap-major output channels; bk (K*K*C,).  CUDA tensors launch B3 (the
-    tensor-core kernel in bf16, the CUDA-core kernel in f32); CPU tensors
-    run :func:`mod_fac_plain`.  Where autograd records, the gradients of
-    all four inputs recompute through :func:`mod_fac_plain`."""
+    tap-major output channels; bk (K*K*C,).  CUDA tensors launch B3 (on
+    the tensor cores: bf16, or f32 as 3xTF32); CPU tensors run
+    :func:`mod_fac_plain`.  Where autograd records, the gradients of all
+    four inputs recompute through :func:`mod_fac_plain`."""
     if needs_grad(ev, ff, wk, bk):
         return _ModFacFunction.apply(ev, ff, wk, bk, kernel_size)
     return _run_fused(ev, ff, wk, bk, kernel_size)
@@ -245,34 +312,21 @@ def _launch_shared(ev, ff, wk, bk, kernel_size: int, packed_rows2: bool) -> torc
     b32 = bk.float().contiguous()
     shape = (BN, H // 2, W, 2 * C) if packed_rows2 else (BN, H, W, C)
     out = torch.empty(shape, dtype=ev.dtype, device=ev.device)
+    entry = _ENTRIES[route][1]
     lib = load_library()
     with on_device(ev.device):  # the weight packs and the launch
-        if route == "wgmma_bf16":
-            wpe = pack_bank_weight(wk[:, :, :C, :].to(ev.dtype))
-            wpf = pack_bank_weight(wk[:, :, C:, :].to(ev.dtype))
-            # the ff half plus bias, tap-major so a tap's slice of a row is contiguous
-            scratch = torch.empty((B, K * K, H, W, C), dtype=ev.dtype, device=ev.device)
-            tensors = {"ev": ev, "ff": ff, "wke": wpe, "wkf": wpf}
-            check_inputs(what, tensors, ev.dtype)
-            check_inputs(what, {"bk": b32}, torch.float32)
-            err = lib.ebfi_mod_fac_shared_wgmma(
-                ev.data_ptr(), ff.data_ptr(), wpe.data_ptr(), wpf.data_ptr(), b32.data_ptr(),
-                scratch.data_ptr(), out.data_ptr(), B, N, H, W, C, K, int(packed_rows2),
-                stream_handle(ev.device),
-            )
-            check(lib, err, "ebfi_mod_fac_shared_wgmma")
-        else:
-            wke = wk[:, :, :C, :].to(ev.dtype).reshape(9 * C, K * K * C).contiguous()
-            wkf = wk[:, :, C:, :].to(ev.dtype).reshape(9 * C, K * K * C).contiguous()
-            check_inputs(what, {"ev": ev, "ff": ff, "wke": wke, "wkf": wkf}, ev.dtype)
-            check_inputs(what, {"bk": b32}, torch.float32)
-            scratch = torch.empty((B, H, W, K * K * C), dtype=ev.dtype, device=ev.device)
-            err = lib.ebfi_mod_fac_shared(
-                ev.data_ptr(), ff.data_ptr(), wke.data_ptr(), wkf.data_ptr(), b32.data_ptr(),
-                scratch.data_ptr(), out.data_ptr(), B, N, H, W, C, K, int(packed_rows2),
-                stream_handle(ev.device),
-            )
-            check(lib, err, "ebfi_mod_fac_shared")
+        wpe = _pack(route, wk[:, :, :C, :].to(ev.dtype))
+        wpf = _pack(route, wk[:, :, C:, :].to(ev.dtype))
+        # the ff half plus bias, tap-major so a tap's slice of a row is contiguous
+        scratch = torch.empty((B, K * K, H, W, C), dtype=ev.dtype, device=ev.device)
+        check_inputs(what, {"ev": ev, "ff": ff, "wke": wpe, "wkf": wpf}, ev.dtype)
+        check_inputs(what, {"bk": b32}, torch.float32)
+        err = getattr(lib, entry)(
+            ev.data_ptr(), ff.data_ptr(), wpe.data_ptr(), wpf.data_ptr(), b32.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), B, N, H, W, C, K, int(packed_rows2),
+            stream_handle(ev.device),
+        )
+        check(lib, err, entry)
     _count(modification_fac_fused_shared, route, packed_rows2)
     return out
 
@@ -316,7 +370,7 @@ def modification_fac_fused_shared(ev, ff, wk, bk, kernel_size: int = 5,
     packed_rows2 (H even) stores the same values rows2-packed, (B*N, H/2,
     W, 2C): image row 2r in channels [0, C) of packed row r, row 2r + 1 in
     [C, 2C) (``modification_fac_fused_shared_packed`` of the JAX package).
-    CUDA tensors launch B2 (tensor cores in bf16, CUDA cores in f32); CPU
+    CUDA tensors launch B2 (tensor cores: bf16, or f32 as 3xTF32); CPU
     tensors run :func:`mod_fac_shared_plain`.  Where autograd records, the
     gradients recompute through :func:`mod_fac_shared_plain`."""
     if needs_grad(ev, ff, wk, bk):
@@ -326,5 +380,5 @@ def modification_fac_fused_shared(ev, ff, wk, bk, kernel_size: int = 5,
 
 for _fn in (modification_fac_fused, modification_fac_fused_shared):
     _fn.launches = 0
-    _fn.launches_by_route = {"wgmma_bf16": 0, "simt_f32": 0}
+    _fn.launches_by_route = {route: 0 for route in _ENTRIES}
     _fn.launches_packed = 0  # of those, with the rows2-packed store (B2p)

@@ -59,13 +59,12 @@ def rec(monkeypatch):
         monkeypatch.setattr(mod, "load_library", lambda: FakeLib(r))
         monkeypatch.setattr(mod, "check_inputs", lambda *a: None)
         monkeypatch.setattr(mod, "stream_handle", lambda device: 0)
-    pack = mod_fac_mod.pack_bank_weight
+    for name in ("pack_bank_weight", "pack_bank_weight_tf32"):
+        def recorded_pack(wk, name=name, pack=getattr(mod_fac_mod, name)):
+            r.note(name)
+            return pack(wk)
 
-    def recorded_pack(wk):
-        r.note("pack_bank_weight")
-        return pack(wk)
-
-    monkeypatch.setattr(mod_fac_mod, "pack_bank_weight", recorded_pack)
+        monkeypatch.setattr(mod_fac_mod, name, recorded_pack)
     return r
 
 
@@ -81,14 +80,16 @@ def test_b1_launches_under_the_input_device(rec):
     assert rec.calls == [("ebfi_fac_forward", True)]
 
 
+PACKERS = {torch.bfloat16: "pack_bank_weight", torch.float32: "pack_bank_weight_tf32"}
+
+
 @pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "ebfi_mod_fac_fused_wgmma"),
                                          (torch.float32, "ebfi_mod_fac_fused")])
 def test_b3_packs_and_launches_under_the_input_device(rec, dtype, entry):
     ev, ff = _t((1, 4, 5, C), dtype), _t((1, 4, 5, C), dtype, 1)
     mod_fac_mod._launch_fused(ev, ff, _t((3, 3, 2 * C, K * K * C), dtype), _t((K * K * C,)), K)
     assert rec.entered == [ev.device]
-    packs = [("pack_bank_weight", True)] if dtype == torch.bfloat16 else []
-    assert rec.calls == packs + [(entry, True)]
+    assert rec.calls == [(PACKERS[dtype], True), (entry, True)]
 
 
 @pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "ebfi_mod_fac_shared_wgmma"),
@@ -99,8 +100,7 @@ def test_b2_packs_and_launches_under_the_input_device(rec, dtype, entry, packed)
     mod_fac_mod._launch_shared(ev, ff, _t((3, 3, 2 * C, K * K * C), dtype), _t((K * K * C,)), K,
                                packed)
     assert rec.entered == [ev.device]
-    packs = [("pack_bank_weight", True)] * 2 if dtype == torch.bfloat16 else []
-    assert rec.calls == packs + [(entry, True)]
+    assert rec.calls == [(PACKERS[dtype], True)] * 2 + [(entry, True)]
 
 
 def test_the_plain_backward_enters_no_guard(rec, monkeypatch):

@@ -191,22 +191,23 @@ def test_bf16_call_with_other_channels_raises_without_a_card():
 
 def test_routes_by_dtype():
     assert mod_fac._route("k", torch.bfloat16, 5) == "wgmma_bf16"
-    assert mod_fac._route("k", torch.float32, 7) == "simt_f32"
-    with pytest.raises(ValueError, match="kernel_size"):
-        mod_fac._route("k", torch.bfloat16, 7)
+    assert mod_fac._route("k", torch.float32, 5) == "wgmma_3xtf32"
+    for dt in (torch.bfloat16, torch.float32):  # both kernels' halos cover K <= 5
+        with pytest.raises(ValueError, match="kernel_size"):
+            mod_fac._route("k", dt, 7)
     with pytest.raises(TypeError):
         mod_fac._route("k", torch.float16, 5)
 
 
 def test_route_counters_reset_with_the_launch_counts():
     kern.modification_fac_fused.launches_by_route["wgmma_bf16"] = 3
-    kern.modification_fac_fused_shared.launches_by_route["simt_f32"] = 2
+    kern.modification_fac_fused_shared.launches_by_route["wgmma_3xtf32"] = 2
     kern.modification_fac_fused_shared.launches_packed = 1
     kern.reset_launch_counts()
     assert kern.modification_fac_fused_shared.launches_packed == 0
     assert kern.route_counts() == {
-        "mod_fac": {"wgmma_bf16": 0, "simt_f32": 0},
-        "mod_fac_shared": {"wgmma_bf16": 0, "simt_f32": 0},
+        "mod_fac": {"wgmma_bf16": 0, "wgmma_3xtf32": 0},
+        "mod_fac_shared": {"wgmma_bf16": 0, "wgmma_3xtf32": 0},
     }
 
 
@@ -216,4 +217,4 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
     kern.reset_launch_counts()
     got = kern.modification_fac_fused_shared(ev.bfloat16(), ff.bfloat16(), wk, bk, K)
     assert got.dtype == torch.bfloat16
-    assert kern.route_counts()["mod_fac_shared"] == {"wgmma_bf16": 0, "simt_f32": 0}
+    assert kern.route_counts()["mod_fac_shared"] == {"wgmma_bf16": 0, "wgmma_3xtf32": 0}
