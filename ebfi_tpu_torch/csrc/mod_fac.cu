@@ -17,7 +17,13 @@
 // about three decimal digits, so every product is taken as 3xTF32:
 //   a*b ~ a_lo*b_hi + a_hi*b_lo + a_hi*b_hi,  x_hi = tf32(x), x_lo = tf32(x - x_hi)
 // (cvt.rna), three TF32 wgmma into one f32 accumulator, the two small terms
-// first: f32-grade products at 495/3 = 165 TFLOP/s.  The design:
+// first: f32-grade products at 495/3 = 165 TFLOP/s.  The tensor cores
+// truncate each add into the accumulator (a 1152-deep sum of 144 wgmma
+// ends -20 ulp off on average, ebfi_tpu_torch/tools/tf32_wgmma_rate.py),
+// which over the 432 wgmma of a bank value cost 5-8x the CUDA-core route's
+// error; so the accumulator
+// holds one 64-deep chunk (24 wgmma) and its partial sum is added into a
+// second accumulator in registers, rounded to nearest.  The design:
 // - Implicit GEMM: M = pixels in 64-pixel row segments, N = two taps' 128
 //   bank channels (wgmma m64n128k8: on this card register-A TF32 wgmma
 //   reaches ~90 % of the TF32 peak at N = 128 and ~68 % at N = 64, measured
@@ -56,7 +62,11 @@
 //   per B3 call at 360x640 (1800 blocks), 6.9 + 110 GB per B2 call at
 //   N = 16 (1800 + 28800 blocks), all from L2 (the packed weights, 7.7 MB,
 //   stay resident); under 2 TB/s at the measured times.
-// - After a tap pair's steps the epilogue runs in registers, per tap: add
+// - Promotion: after a chunk's 8 steps each consumer warpgroup waits for
+//   its last wgmma group and adds D into acc (64 registers more beside D's
+//   64 and the 32 FAC sums); the other warpgroup keeps the tensor cores
+//   busy meanwhile.
+// - After a tap pair's chunks the epilogue runs in registers, per tap: add
 //   the bias (B3) or the f32 ff scratch (B2: each timestamp's block reads
 //   its tile; the N blocks of a tile are launched together, so the tile
 //   comes from device memory about once), leaky ReLU, multiply by the ev
@@ -228,7 +238,9 @@ __global__ void __launch_bounds__(kThreads, 1) mod_fac_3xtf32(const Params p) {
   // channel 8*((i%32)/4) + 2*tig + i%2 of the pair's tap 2*pr + i/32
   const int prow = warp * 16 + g8;
 
-  float d[64], fac[32];
+  // d: one chunk's sum on the tensor cores; acc: the chunks' partial sums,
+  // added in registers (round to nearest: the tensor cores truncate)
+  float d[64], acc[64], fac[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) fac[i] = 0.f;
   float(&d0)[32] = *reinterpret_cast<float(*)[32]>(d);  // the pair's first tap alone
@@ -236,14 +248,15 @@ __global__ void __launch_bounds__(kThreads, 1) mod_fac_3xtf32(const Params p) {
   int it = 0;  // weight step, in the producer's order
   for (int pr = 0; pr < pairs; ++pr) {
     const bool two = 2 * pr + 1 < KK;  // else the last, single tap: N = 64
-    // ---- D = sum over chunks and k8 steps of 3xTF32 A(shifted halo) * W(taps 2pr, 2pr+1)
-    int prev = 0;
+    // ---- acc = sum over chunks of (D = sum over the chunk's k8 steps of
+    //      3xTF32 A(shifted halo) * W(taps 2pr, 2pr+1))
     for (int kc = 0; kc < G::kChunks; ++kc) {
       const int half = kc / 9, tap9 = kc % 9, dy = tap9 / 3, dx = tap9 % 3;
       const int bd = halo_border<MODE>(half), hc = halo_cols<MODE>(half);
       const int pl = halo_plane<MODE>(half);
       const float* abase = halo + half * G::kSlot0 +
                            ((wg + bd - 1 + dy) * hc + bd - 1 + dx + prow) * 8 + 2 * tig;
+      int prev = 0;
 #pragma unroll
       for (int s = 0; s < 8; ++s, ++it) {
         const float* a = abase + s * pl * 8;
@@ -261,27 +274,30 @@ __global__ void __launch_bounds__(kThreads, 1) mod_fac_3xtf32(const Params p) {
         const uint64_t dlo = smem_desc(bhi + kStepBytes, 128, 256, 0);
         wgmma_fence();
         if (two) {
-          wgmma_m64n128k8_tf32_rs(d, alo, dhi, (kc | s) != 0);
+          wgmma_m64n128k8_tf32_rs(d, alo, dhi, s != 0);
           wgmma_m64n128k8_tf32_rs(d, ahi, dlo, 1);
           wgmma_m64n128k8_tf32_rs(d, ahi, dhi, 1);
         } else {
-          wgmma_m64n64k8_tf32_rs(d0, alo, dhi, (kc | s) != 0);
+          wgmma_m64n64k8_tf32_rs(d0, alo, dhi, s != 0);
           wgmma_m64n64k8_tf32_rs(d0, ahi, dlo, 1);
           wgmma_m64n64k8_tf32_rs(d0, ahi, dhi, 1);
         }
         wgmma_commit();
-        if (kc | s) {
+        if (s) {
           wgmma_wait<1>();  // the previous step's group: its stage and A registers are free
           __syncwarp();
           if (lane == 0) mbar_arrive(empty0 + 8 * prev);
         }
         prev = st;
       }
+      wgmma_wait<0>();
+      fence_regs(d);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if (two || i < 32) acc[i] = kc ? acc[i] + d[i] : d[i];
     }
-    wgmma_wait<0>();
-    fence_regs(d);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty0 + 8 * prev);
 
     // ---- epilogue of the pair's taps, in registers
 #pragma unroll
@@ -298,7 +314,7 @@ __global__ void __launch_bounds__(kThreads, 1) mod_fac_3xtf32(const Params p) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int c = 8 * j + 2 * tig;
-          float v0 = d[32 * h + 4 * j + 2 * q], v1 = d[32 * h + 4 * j + 2 * q + 1];
+          float v0 = acc[32 * h + 4 * j + 2 * q], v1 = acc[32 * h + 4 * j + 2 * q + 1];
           if (MODE == kShared) {
             const float2 f = __ldg(reinterpret_cast<const float2*>(
                 p.ffbank + (((frame * KK + t) * H + yc) * W + pxc) * kC + c));

@@ -214,7 +214,7 @@ class SuperSloMo:
 # Non-tensor metadata the upstream Super-SloMo training script stores beside
 # the two state dicts: a ``datetime`` timestamp (strings, ints, floats and
 # lists of them load under ``weights_only`` without an allowlist).
-CHECKPOINT_METADATA_TYPES = [datetime.datetime, datetime.date, datetime.timedelta]
+CHECKPOINT_METADATA_TYPES = [datetime.datetime]
 
 
 def load_checkpoint(path: str, device="cpu") -> SuperSloMo:

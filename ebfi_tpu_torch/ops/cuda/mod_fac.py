@@ -19,9 +19,11 @@ it as an implicit GEMM on the tensor cores, keep the TPU kernels' one idea
   per block share every weight tile.
 - f32: ``csrc/mod_fac.cu``, the same design on TF32 wgmma as 3xTF32: every
   product a*b is taken as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with x_hi =
-  tf32(x), x_lo = tf32(x - x_hi) (:func:`split_tf32`), summed into one f32
-  accumulator, which keeps f32-grade products (TF32 alone keeps about
-  three decimal digits) at a third of the TF32 rate, 165 TFLOP/s.  The
+  tf32(x), x_lo = tf32(x - x_hi) (``cvt.rna.tf32.f32``), which keeps
+  f32-grade products (TF32 alone keeps about three decimal digits) at a
+  third of the TF32 rate, 165 TFLOP/s.  The tensor cores' f32 sums
+  truncate, so each 64-deep chunk is summed on them alone and its partial
+  sum is added, rounded to nearest, into an accumulator in registers.  The
   weights are packed here in f32 by :func:`pack_bank_weight_tf32` (two
   taps per 128-wide tile) and split on chip; the activations are split in
   registers (A of the register-A wgmma).  The B2 scratch stays f32, the
@@ -117,24 +119,6 @@ def _swizzle(w):
     n = torch.arange(TILE, device=w.device)[:, None]
     idx = (torch.arange(TILE // 8, device=w.device)[None, :] ^ (n % 8))[:, :, None]
     return torch.gather(w, -2, idx.expand(*w.shape[:-3], TILE, TILE // 8, 8))
-
-
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """f32 -> TF32 as the f32 kernel converts (``cvt.rna.tf32.f32``): keep
-    10 explicit mantissa bits, round to nearest with ties away from zero
-    (add half of the dropped 13 bits' range to the magnitude, then clear
-    them; a carry moves into the exponent, and past the largest finite
-    value into infinity).  NaN stays NaN.  Returned as f32."""
-    bits = x.float().contiguous().view(torch.int32)
-    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-    return torch.where(torch.isnan(x), x.float(), rounded)
-
-
-def split_tf32(x: torch.Tensor):
-    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi): the two halves of
-    3xTF32 (x - hi is exact in f32; hi + lo gives x back to 2^-21 of it)."""
-    hi = tf32_round(x)
-    return hi, tf32_round(x.float() - hi)
 
 
 def _tf32_order(cin: int) -> torch.Tensor:

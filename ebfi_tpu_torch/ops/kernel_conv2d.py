@@ -10,7 +10,6 @@ channel ``c*K*K + ky*K + kx`` ('c_major', the reference op's order) or
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 
 def kernel_conv2d_raw(
@@ -50,6 +49,19 @@ def kernel_conv2d(
     (B, H, W, C*K*K) in either layout, odd K -> (B, H, W, C)."""
     if kernel_size % 2 != 1:
         raise ValueError("kernel_size must be odd")
-    p = (kernel_size - 1) // 2
-    x_pad = F.pad(x.permute(0, 3, 1, 2), (p, p, p, p), mode="replicate")
-    return kernel_conv2d_raw(x_pad.permute(0, 2, 3, 1), kernel, kernel_size, layout)
+    return kernel_conv2d_raw(replicate_pad(x, (kernel_size - 1) // 2), kernel, kernel_size,
+                             layout)
+
+
+def replicate_pad(x: torch.Tensor, p: int) -> torch.Tensor:
+    """x (B, H, W, C) replication-padded by p on H and W: the values of
+    ``F.pad(..., mode="replicate")``, built from edge slices, ``expand``
+    and ``cat``, whose backward sums in a fixed order.  (F.pad's backward
+    adds with atomics on the card, so a bf16 gradient through it changes
+    from run to run.)"""
+    for dim in (1, 2):
+        size = [-1] * 4
+        size[dim] = p
+        edge = lambda i: x.narrow(dim, i, 1).expand(size)
+        x = torch.cat([edge(0), x, edge(x.shape[dim] - 1)], dim=dim)
+    return x

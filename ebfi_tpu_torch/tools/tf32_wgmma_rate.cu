@@ -3,7 +3,7 @@
 // from these instructions can reach.  Each block is two warpgroups on one
 // SM; per step each warpgroup issues three wgmma into one accumulator (as
 // the 3xTF32 kernel csrc/mod_fac.cu does), commits, and waits for the
-// previous step's group.  Built and run by tools/tf32_wgmma_rate.py.
+// previous step's group.  Built and run by tf32_wgmma_rate.py beside it.
 #include <stdint.h>
 
 #include "hopper.cuh"

@@ -2,9 +2,9 @@
 """Rate of register-A TF32 wgmma on one Hopper card, at N = 64 and 128,
 and how its f32 accumulator rounds.
 
-    python3 tools/tf32_wgmma_rate.py [--steps 20000]
+    python3 -m ebfi_tpu_torch.tools.tf32_wgmma_rate [--steps 20000]
 
-Builds ``tools/tf32_wgmma_rate.cu`` with nvcc (the kernels' flags and
+Builds ``tf32_wgmma_rate.cu`` beside it with nvcc (the kernels' flags and
 ``ebfi_tpu_torch/csrc/hopper.cuh``) into a temporary directory and prints
 the card, then one JSON line:
 - rate: one block of two warpgroups per SM, each issuing three m64nNk8
@@ -32,8 +32,7 @@ import tempfile
 
 import numpy as np
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_TF32 = 495e12  # H100 SXM, dense, NVIDIA data sheet
 DEPTH = 1152  # the bank conv's depth, 9 * 2C
@@ -91,7 +90,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tf32_wgmma_rate: no CUDA device", file=sys.stderr)
         return 2
-    from ebfi_tpu_torch.ops.cuda import build
+    from ..ops.cuda import build
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -99,7 +98,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         lib_path = os.path.join(tmp, "tf32_wgmma_rate.so")
         subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC_DIR),
-                        "-o", lib_path, os.path.join(ROOT, "tools", "tf32_wgmma_rate.cu")],
+                        "-o", lib_path, os.path.join(HERE, "tf32_wgmma_rate.cu")],
                        check=True, capture_output=True, text=True)
         lib = ctypes.CDLL(lib_path)
         lib.tf32_wgmma_ms.argtypes = [ctypes.c_int] * 3

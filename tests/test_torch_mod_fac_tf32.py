@@ -11,12 +11,16 @@ The CUDA kernel runs only on the card.  What it computes is fixed here:
   the wgmma descriptor reads it;
 - its arithmetic, by an emulation in PyTorch that follows its loop order
   -- per pair of bank taps, 9 (or 18) 64-deep chunks of 8 k8 steps, each
-  step three TF32 products of split operands added to one f32
-  accumulator, the two small terms first; B2's ff half plus bias into an
-  f32 scratch; leaky ReLU; FAC accumulate from the replication-padded
-  neighbour, tap by tap -- held against the plain versions and the JAX
-  package's XLA twins, and, without the two small terms (TF32 alone),
-  shown to land at least 50x farther from the f64 plain version.
+  step three TF32 products of split operands added to the f32
+  accumulator, the two small terms first, each add truncated as the
+  tensor cores' are; each chunk's sum added, rounded to nearest, into a
+  second accumulator; B2's ff half plus bias into an f32 scratch; leaky
+  ReLU; FAC accumulate from the replication-padded neighbour, tap by tap
+  -- held against the plain versions and the JAX package's XLA twins;
+  without the two small terms (TF32 alone) it lands at least 50x farther
+  from the f64 plain version, and without the chunk promotion (one
+  truncating accumulator over all 18 chunks, the route's first design) at
+  least 5x farther.
 
 Tolerances:
 - emulation against the plain versions and the XLA twins in f32:
@@ -24,8 +28,11 @@ Tolerances:
   (``test_torch_mod_fac_tiles.py``): the emulation sums the 1152-deep bank
   conv step by step and the references as one convolution, and 3xTF32
   drops the lo*lo term (2^-22 relative per product);
-- against the plain version in f64: the 3xTF32 emulation within 1e-4, TF32
-  alone at least 50x farther (TF32 keeps 2^-11 of each operand).
+- against the plain version in f64: the 3xTF32 emulation within 1e-4 and
+  within 3x the plain version's own f32 error; TF32 alone at least 50x
+  farther (TF32 keeps 2^-11 of each operand); without the promotion at
+  least 5x farther (the truncation's bias grows with the number of
+  truncated adds: 432 per bank value instead of 24 per chunk).
 """
 import numpy as np
 import pytest
@@ -39,8 +46,6 @@ from ebfi_tpu_torch.ops.cuda.mod_fac import (
     STEP,
     TILE,
     pack_bank_weight_tf32,
-    split_tf32,
-    tf32_round,
     unpack_bank_weight_tf32,
 )
 
@@ -50,7 +55,35 @@ C = 64
 RTOL, ATOL = 1e-4, 1e-4
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The emulation is thousands of small ops: one intra-op thread each
+    (beside other test processes on the same cores, more only contend)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------------------ TF32 conversion
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 as the f32 kernel converts (``cvt.rna.tf32.f32``), on
+    int32 views: keep 10 explicit mantissa bits, round to nearest with ties
+    away from zero (add half of the dropped 13 bits' range to the
+    magnitude, then clear them; a carry moves into the exponent, and past
+    the largest finite value into infinity).  NaN stays NaN."""
+    bits = x.float().contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isnan(x), x.float(), rounded)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi): the two halves of
+    3xTF32 (x - hi is exact in f32; hi + lo gives x back to 2^-21 of it)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
 
 
 def cvt_rna_tf32(x: np.ndarray) -> np.ndarray:
@@ -123,11 +156,12 @@ def step_offset(n, cc):
 
 
 def b_step(packed, pair, kc, s):
-    """The B operand of step s of chunk kc, tap pair ``pair``, read as the
-    descriptor reads it: (8 logical depth, 128 bank channels)."""
+    """The B operand of step s (an index or a tensor of them) of chunk kc,
+    tap pair ``pair``, read as the descriptor reads it: (8 logical depth,
+    128 bank channels) per step."""
     k = torch.arange(STEP)[:, None]
     n = torch.arange(2 * TILE)[None, :]
-    return packed[pair, kc, s][(n // 8) * 64 + (k // 4) * 32 + (n % 8) * 4 + k % 4]
+    return packed[pair, kc, s][..., (n // 8) * 64 + (k // 4) * 32 + (n % 8) * 4 + k % 4]
 
 
 @pytest.mark.parametrize("cin", [C, 2 * C])
@@ -174,10 +208,21 @@ def test_descriptor_view_follows_the_fragment_depth_order():
 # ------------------------------------------------------------------ 3xTF32 arithmetic
 
 
-def emulate(ev, ff, wk, bk, K, shared, terms=3):
+def toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """f64 -> the f32 value rounded toward zero, kept in f64: clear the 29
+    mantissa bits f32 lacks (exact for f32's normal range)."""
+    return (x.view(torch.int64) & -(1 << 29)).view(torch.float64)
+
+
+def emulate(ev, ff, wk, bk, K, shared, terms=3, promote=True):
     """The f32 kernel's arithmetic in its loop order: per pair of taps,
     each k8 step adds a_lo @ b_hi, a_hi @ b_lo, a_hi @ b_hi (terms=3) or
-    a_hi @ b_hi alone (terms=1) to the f32 accumulator, in that order."""
+    a_hi @ b_hi alone (terms=1), each an exact 8-deep partial, to the f32
+    accumulator rounded toward zero (the tensor cores truncate; per add
+    this errs a little more than the card measured); the accumulator
+    holds one 64-deep chunk and its sum is added, rounded to nearest,
+    into a second one (promote=True, the kernel), or it holds them all
+    (promote=False)."""
     p = (K - 1) // 2
     B = ff.shape[0]
     N = ev.shape[0] // B
@@ -187,18 +232,26 @@ def emulate(ev, ff, wk, bk, K, shared, terms=3):
     bias = bk.reshape(K * K, C)
     order = mod_fac._tf32_order(C)
 
+    steps = torch.arange(TILE // STEP)
+
     def bank_pair(halves, packed, pair):
-        d = torch.zeros((halves[0].shape[0], H, W, 2 * C))
+        acc = d = torch.zeros((halves[0].shape[0], H, W, 2 * C), dtype=torch.float64)
         for kc in range(9 * len(halves)):
             half, (dy, dx) = kc // 9, divmod(kc % 9, 3)
             a = halves[half][:, dy:dy + H, dx:dx + W][..., order]
-            a_hi, a_lo = split_tf32(a.reshape(*a.shape[:3], TILE // STEP, STEP))
-            for s in range(TILE // STEP):
-                b_hi, b_lo = split_tf32(b_step(packed, pair, kc, s))
-                products = ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))[3 - terms:]
-                for x, y in products:
-                    d = d + x[..., s, :] @ y
-        return d
+            a_hi, a_lo = (x.double() for x in split_tf32(a.reshape(*a.shape[:3], -1, STEP)))
+            b_hi, b_lo = (x.double() for x in split_tf32(b_step(packed, pair, kc, steps)))
+            products = ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))[3 - terms:]
+            # each step's exact partials (TF32 products, 8 deep, in f64)
+            parts = [torch.einsum("bhwsk,skn->sbhwn", x, y) for x, y in products]
+            if promote:
+                d = torch.zeros_like(acc)
+            for s in steps:
+                for part in parts:
+                    d = toward_zero(d + part[s])
+            if promote:
+                acc = (acc + d).float().double()  # f32 add, rounded to nearest
+        return (acc if promote else d).float()
 
     if shared:
         packed = pack_bank_weight_tf32(wk[:, :, :C, :])
@@ -269,6 +322,22 @@ def test_dropping_the_small_terms_lands_farther_from_plain(rng, shared):
     args = inputs(rng, 1, 2 if shared else 1, 4, 11, K)
     plain = kern.mod_fac_shared_plain if shared else kern.mod_fac_plain
     check_terms({"shared": shared}, plain, args, K)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_truncating_sums_need_the_chunk_promotion(rng, shared):
+    """With truncating adds, one accumulator over all chunks lands >= 5x
+    farther from the f64 plain version than the kernel's per-chunk
+    promotion, which stays within 3x of the f32 plain version's error."""
+    K = 3
+    args = inputs(rng, 1, 2 if shared else 1, 4, 11, K)
+    plain = kern.mod_fac_shared_plain if shared else kern.mod_fac_plain
+    ref = plain(*(a.double() for a in args), K)
+    err = lambda x: (x.double() - ref).abs().max().item()
+    promoted = err(emulate(*args, K, shared=shared))
+    one_accumulator = err(emulate(*args, K, shared=shared, promote=False))
+    assert promoted <= 3 * err(plain(*args, K))
+    assert one_accumulator >= 5 * promoted, (one_accumulator, promoted)
 
 
 # ------------------------------------------------------------------ routing

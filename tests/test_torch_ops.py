@@ -81,6 +81,27 @@ def test_kernel_conv2d_matches_jax(rng, layout, K):
     )
 
 
+@pytest.mark.parametrize("p", [0, 1, 2, 3])
+def test_replicate_pad_is_numpys_edge_pad_with_an_ordered_backward(rng, p):
+    """FAC's replication pad: numpy's edge pad bit for bit (H or W of 1
+    included); its gradient sums each edge's copies, as F.pad's does, but
+    in a fixed order (the same bits on every call)."""
+    from ebfi_tpu_torch.ops.kernel_conv2d import replicate_pad
+
+    for shape in ((2, 5, 7, 3), (1, 1, 4, 2)):
+        x = rng.standard_normal(shape).astype(np.float32)
+        want = np.pad(x, ((0, 0), (p, p), (p, p), (0, 0)), mode="edge")
+        xt = torch.from_numpy(x).requires_grad_()
+        got = replicate_pad(xt, p)
+        assert np.array_equal(got.detach().numpy(), want)
+        g = torch.from_numpy(rng.standard_normal(want.shape).astype(np.float32))
+        grads = [torch.autograd.grad(replicate_pad(xt, p), xt, g)[0] for _ in range(2)]
+        xr = xt.detach().permute(0, 3, 1, 2).requires_grad_()
+        torch.nn.functional.pad(xr, (p, p, p, p), mode="replicate").backward(g.permute(0, 3, 1, 2))
+        assert torch.equal(grads[0], grads[1])
+        torch.testing.assert_close(grads[0], xr.grad.permute(0, 2, 3, 1), rtol=1e-6, atol=1e-6)
+
+
 def test_kernel_conv2d_rejects_bad_args(rng):
     x = torch.zeros(1, 4, 4, 2)
     with pytest.raises(ValueError):
