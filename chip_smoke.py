@@ -92,14 +92,34 @@ seconds elapsed:
    ``upsample_sequence`` and the generator at 64x96, card against CPU;
    (c) DCNv2's forward and gradients, PSROI pooling, every block of
    ``models/library.py`` and ConvLayer's BN (train and eval) and IN, card
-   against CPU.
+   against CPU;
+10. the exported programs, norm models and dataset options: (a) the
+   engine's call exported by ``ebfi_tpu_torch/tools/export.py`` at
+   720x1280 (the shipped model, random weights from the seed): N = 16 in
+   bf16 (hoisted, B2 on ``wgmma_bf16``), N = 16 in f32 (unhoisted,
+   multi_chunk 4, B1), one timestamp in bf16 (B3); each saved as ``.pt2``
+   (its export seconds and size printed), the engine timed on phase 4's
+   requests, then every program served by one fresh process that imports
+   only ``ebfi_tpu_torch.ops`` (this script with ``--export-worker
+   SPEC``): outputs within EXPORT_TOL of the engine's, the same launches,
+   the kernel and route of the path alone, ms per request beside the
+   engine's; (b) EVFIAutoEx with ``norm`` BN (running statistics drawn
+   away from 0 and 1) and IN, ``dual_path`` False, N = 16 at 720p in f32
+   and in bf16 with fast_math: B1 alone launches (Modification stays
+   unfused), ms per request, card against CPU at 64x96; (c) three steps of
+   ``train.cli.main`` on the shipped f32 config with
+   ``train_dataloader.fast``, and with ``NeedNeighborGT`` on a config that
+   rescales (GT at half the stored resolution), each against the same run
+   without the option: equal losses step by step (cuDNN deterministic).
 
 The line before the last is a JSON object with the kernels' numbers
 (``launches_train``: B1's launches in run (a), validation forwards
 included, and B3's in run (b); ``launches_dp_nccl``: the same in phase 7
 (a); ``launches_adversarial``: the same in phase 8 (a)'s runs in this
 process; ``launches_generate``: all kernels' launches in phase 9 (a)'s
-generator run, 0: no FAC kernel is on that path; ``f32_route``: B2, B2p and
+generator run, 0: no FAC kernel is on that path; ``launches_export``: the
+kernel's launches by phase 10 (a)'s exported programs; ``launches_norm``:
+B1's in phase 10 (b), 0 for the others; ``f32_route``: B2, B2p and
 B3's f32 numbers from phase 3, with their launches in phase 4 (d)); the
 last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises and
@@ -2193,6 +2213,311 @@ def phase_generate(torch, kern):
     return launches
 
 
+# ------------------------------------------------- export, norm models, data options
+
+# (label, precision, num_t, the engine's multi_chunk, kernel, route): the
+# f32 call unhoisted, multi_chunk 4 as phase 4 (c) (bounds its f32 bank)
+EXPORT_CASES = (
+    ("bf16 N=16", "bf16", N, 16, "mod_fac_shared", "wgmma_bf16"),
+    ("f32 N=16", "f32", N, 4, "fac", None),
+    ("bf16 num_t=1", "bf16", 1, 16, "mod_fac", "wgmma_bf16"),
+)
+EXPORT_TOL = 1e-6  # the program against the engine on the same requests, f32 outputs
+DATA_ITERS = 3
+# phase 10 (c)'s clip: 128x128 crops of it, or all of it at half the size
+# (80x96, whose sides the loss's 5-level Laplacian pyramid divides)
+DATA_CLIP = (65, 160, 192)
+KERNEL_OF = {"fac": "B1_fac", "mod_fac": "B3_mod_fac", "mod_fac_shared": "B2_mod_fac_shared"}
+
+
+def export_requests(torch, num_t):
+    """Phase 4's requests (same seed) at num_t timestamps, and gt_ex."""
+    rng = np.random.default_rng(SEED + 1)
+    return ([make_request(torch, rng, n=num_t) for _ in range(REQUESTS)],
+            torch.zeros((1, 1), device="cuda"))
+
+
+def export_worker(spec_path: str) -> int:
+    """Serve exported programs in a process that imports nothing of the
+    port but ``ebfi_tpu_torch.ops`` (``chip_smoke.py --export-worker
+    SPEC``): for each program of the spec, REQUESTS requests with launch
+    counts zeroed before and read after; saves the first request's
+    outputs and writes times and counts."""
+    import torch
+
+    import ebfi_tpu_torch.ops  # noqa: F401 (registers the ebfi:: ops the programs call)
+    from ebfi_tpu_torch.ops import cuda as kern
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    # f32 convolutions, as the parent's engine (and the infer CLI in f32):
+    # a program does not carry the TF32 switches
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = []
+    for case in spec["cases"]:
+        program = torch.export.load(case["pt2"]).module()
+        requests, gt_ex = export_requests(torch, case["num_t"])
+        kern.reset_launch_counts()
+        times, finite = [], True
+        with torch.no_grad():
+            for i, req in enumerate(requests):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sharps, finals = program(*req, gt_ex)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                finite = finite and bool(torch.isfinite(sharps).all()
+                                         and torch.isfinite(finals).all())
+                if i == 0:
+                    torch.save({"sharps": sharps.cpu(), "finals": finals.cpu()}, case["outputs"])
+        results.append({"times": times, "finite": finite, "launches": kern.launch_counts(),
+                        "routes": kern.route_counts(),
+                        "packed": kern.modification_fac_fused_shared.launches_packed})
+        del program, requests, sharps, finals
+        torch.cuda.empty_cache()
+    with open(spec["result"], "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def _only(counts, routes, kernel, route):
+    """Whether ``kernel`` alone was launched, and, where given, on ``route``
+    alone."""
+    ok = counts[kernel] > 0 and all(v == 0 for k, v in counts.items() if k != kernel)
+    if route is not None:
+        ok = ok and routes[kernel][route] == counts[kernel]
+    return ok
+
+
+def phase_export(torch, kern, tmp):
+    """(a): the engine's call exported (``tools/export.py``) and saved for
+    each of EXPORT_CASES, the engine timed on the requests, then every
+    program served by one fresh process, against the engine.  Returns the
+    programs' launches per kernel."""
+    from ebfi_tpu_torch.infer import InferenceEngine
+    from ebfi_tpu_torch.models import build_model, init_weights
+    from ebfi_tpu_torch.tools.export import export_engine
+
+    model = init_weights(build_model(MODEL_CFG), SEED)
+    cases = []
+    for label, precision, num_t, chunk, kernel, route in EXPORT_CASES:
+        engine = InferenceEngine(model, precision=precision, multi_chunk=chunk)
+        t0 = time.perf_counter()
+        program = export_engine(engine, H, W, num_t)
+        export_s = time.perf_counter() - t0
+        pt2 = os.path.join(tmp, f"{precision}_{num_t}.pt2")
+        torch.export.save(program, pt2)
+        nodes = sorted({str(n.target) for n in program.graph.nodes if "ebfi." in str(n.target)})
+        del program
+        # the engine on the same requests: the reference outputs, ms per request
+        requests, gt_ex = export_requests(torch, num_t)
+        call = ((lambda f, e, ts: engine.interpolate(f, e, ts, gt_ex)) if num_t > 1
+                else (lambda f, e, ts: engine.forward(f, e, ts, gt_ex)))
+        kern.reset_launch_counts()
+        times = []
+        for i, req in enumerate(requests):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = call(*req)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            if i == 0:
+                ref = [o.cpu() for o in out]
+            del out
+        cases.append(dict(label=label, precision=precision, chunk=chunk, kernel=kernel,
+                          route=route, export_s=export_s, nodes=nodes, times=times, ref=ref,
+                          counts=kern.launch_counts(), pt2=pt2, num_t=num_t,
+                          outputs=os.path.join(tmp, f"outputs_{precision}_{num_t}.pt")))
+        del engine, requests
+        torch.cuda.empty_cache()
+
+    spec = {"cases": [{k: c[k] for k in ("pt2", "num_t", "outputs")} for c in cases],
+            "result": os.path.join(tmp, "result.json")}
+    spec_path = os.path.join(tmp, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--export-worker",
+                           spec_path], timeout=900)
+    log(f"export (a): the serving process took {time.perf_counter() - t1:.1f} s wall for the "
+        f"{len(cases)} programs")
+    if proc.returncode != 0:
+        raise AssertionError(f"export (a): the serving process exited {proc.returncode}")
+    with open(spec["result"]) as f:
+        results = json.load(f)
+    launches = {name: 0 for name in (*KERNEL_OF.values(), "B2p_mod_fac_shared_packed")}
+    ms = lambda ts: 1e3 * sum(ts[1:]) / len(ts[1:])  # noqa: E731
+    for c, res in zip(cases, results):
+        got = torch.load(c["outputs"])
+        err = max((got["sharps"] - c["ref"][0]).abs().max().item(),
+                  (got["finals"] - c["ref"][1]).abs().max().item())
+        counts, routes = res["launches"], res["routes"]
+        ok = (res["finite"] and err <= EXPORT_TOL and counts == c["counts"]
+              and _only(counts, routes, c["kernel"], c["route"])
+              and tuple(got["finals"].shape) == tuple(c["ref"][1].shape))
+        log(f"export (a) {c['label']} ({c['precision']}, {H}x{W}, engine multi_chunk "
+            f"{c['chunk']}): exported in {c['export_s']:.1f} s, "
+            f"{os.path.getsize(c['pt2']) / 1e6:.1f} MB .pt2, ops {c['nodes']}; served by a fresh "
+            f"process importing ebfi_tpu_torch.ops alone: steady {ms(res['times']):.1f} "
+            f"ms/request against the engine's {ms(c['times']):.1f} (per request "
+            f"{', '.join(f'{1e3 * t:.1f}' for t in res['times'])}); outputs "
+            f"{tuple(got['finals'].shape)} max_abs={err:.2e} against the engine (tol "
+            f"{EXPORT_TOL:.0e}); launches {counts} (engine {c['counts']}), routes {routes} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"export (a) {c['label']}: the exported program does not serve "
+                                 "as the engine does")
+        for k, n in counts.items():
+            launches[KERNEL_OF[k]] += n
+        launches["B2_mod_fac_shared"] -= res["packed"]
+        launches["B2p_mod_fac_shared_packed"] += res["packed"]
+    return launches
+
+
+def norm_model(torch, norm):
+    """The shipped widths with dual_path False and ``norm``, random weights
+    from the seed, norm scales and shifts and BN's running statistics
+    drawn away from their identity."""
+    from ebfi_tpu_torch.models import build_model, init_weights
+    from ebfi_tpu_torch.models.layers import BatchNorm
+
+    cfg = {"name": "EVFIAutoEx", "args": dict(MODEL_CFG["args"], DualPath=False, norm=norm)}
+    model = init_weights(build_model(cfg), SEED)
+    g = torch.Generator().manual_seed(SEED + 7)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (BatchNorm, torch.nn.GroupNorm)):
+                m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape, generator=g))
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+            if isinstance(m, BatchNorm):
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, generator=g))
+                m.running_var.copy_(0.5 + 1.5 * torch.rand(m.running_var.shape, generator=g))
+    return model
+
+
+def phase_norm_models(torch, kern):
+    """(b): EVFIAutoEx with BN and IN (dual_path False) at 720p, N = 16,
+    f32 and bf16 with fast_math: Modification stays unfused, so B1 alone
+    launches; the card against the CPU at 64x96.  Returns B1's launches."""
+    from ebfi_tpu_torch.infer import InferenceEngine
+
+    rng = np.random.default_rng(SEED + 1)
+    requests = [make_request(torch, rng) for _ in range(REQUESTS)]
+    small = make_request(torch, np.random.default_rng(SEED + 2), 64, 96, 3)
+    total = 0
+    for norm in ("BN", "IN"):
+        model = norm_model(torch, norm)
+        for precision, chunk in (("f32", 4), ("bf16", 16)):
+            engine = InferenceEngine(model, precision=precision, fast_math=precision == "bf16",
+                                     multi_chunk=chunk)
+            _, counts, _ = serve(
+                torch, kern, f"(b) norm={norm} {precision} interpolate(outputs='final') N=16"
+                + (", fast_math=True" if precision == "bf16" else f", multi_chunk {chunk}"),
+                "fac", lambda f, e, ts: engine.interpolate(f, e, ts, outputs="final")[1],
+                requests, N)
+            if counts["mod_fac"] or counts["mod_fac_shared"]:
+                raise AssertionError(f"(b) norm={norm} {precision}: B2/B3 launched ({counts})")
+            total += counts["fac"]
+            del engine
+            torch.cuda.empty_cache()
+        gpu = InferenceEngine(model, precision="f32")
+        cpu = InferenceEngine(model, precision="f32", device="cpu")
+        kern.reset_launch_counts()
+        got = gpu.interpolate(*small)[1].cpu()
+        counts = kern.launch_counts()
+        want = cpu.interpolate(*[x.cpu() for x in small])[1]
+        err = (got - want).abs().max().item()
+        ok = err <= 1e-3 and _only(counts, {}, "fac", None)
+        log(f"check (b) norm={norm} card vs CPU f32, 64x96 N=3 (launches {counts}): "
+            f"max_abs={err:.2e} (tol 1e-3) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"(b) norm={norm}: the card and the CPU disagree")
+        del model, gpu, cpu
+    del requests
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_data_options(torch, kern, tmp):
+    """(c): DATA_ITERS steps of the train CLI (the shipped f32 model,
+    ``configs/train_evfi.yml``) with ``fast``, and with NeedNeighborGT on a
+    config that rescales (GT at the stored half resolution), each against
+    the same run without the option: equal losses, step by step, with
+    cuDNN's deterministic algorithms."""
+    from ebfi_tpu_torch.data.clip_dataset import NpzClipDatasetFast
+    from ebfi_tpu_torch.data.synth import write_clip_npz
+    from ebfi_tpu_torch.train import cli as train_cli
+
+    clip = os.path.join(tmp, "clip.npz")
+    frames, h, w = DATA_CLIP
+    write_clip_npz(clip, num_frames=frames, H=h, W=w, seed=SEED + 3, down_scales=(2,))
+    base = {"trainer;iteration_based_train;iterations": DATA_ITERS,
+            "trainer;iteration_based_train;train_log_step": 1,
+            "trainer;iteration_based_train;save_period": 1000, "trainer;do_validation": False}
+    rescale = {"train_dataloader;dataset;scale": 1}  # ori_scale down2: GT at half the size
+    runs = [("plain", {}), ("fast", {"train_dataloader;fast": True}), ("rescaled", rescale),
+            ("rescaled_neighbor", {**rescale, "train_dataloader;dataset;NeedNeighborGT": True})]
+    make_step, losses, out = train_cli.make_train_step, [], {}
+
+    def recording(*a, **k):
+        step = make_step(*a, **k)
+
+        def run(state, batch):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["train_loss"]))
+            return state, metrics
+
+        return run
+
+    deterministic, benchmark = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    train_cli.make_train_step = recording
+    try:
+        for name, extra in runs:
+            cfg = train_config(tmp, name, clip, {**base, **extra})
+            losses.clear()
+            trainer, counts, _, wall = train_run(torch, kern, f"(c) {name}", train_cli,
+                                                 ["-c", cfg, "-id", name])
+            ds = trainer.train_loader.datasets[0]
+            item = ds.get(0, seed=0)
+            out[name] = {"losses": list(losses), "wall": wall, "counts": counts,
+                         "fast": isinstance(ds, NpzClipDatasetFast),
+                         "shapes": {k: tuple(v.shape) for k, v in item.items()}}
+            del trainer
+    finally:
+        train_cli.make_train_step = make_step
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic, benchmark
+    for name, ref in (("fast", "plain"), ("rescaled_neighbor", "rescaled")):
+        a, b = out[name], out[ref]
+        nei = a["shapes"].get("neighbor")
+        ok = (len(a["losses"]) == DATA_ITERS and a["losses"] == b["losses"]
+              and all(np.isfinite(a["losses"]))
+              and a["counts"] == {"fac": DATA_ITERS, "mod_fac": 0, "mod_fac_shared": 0}
+              and (a["fast"] if name == "fast" else
+                   nei is not None and nei[-3:] == (h // 2, w // 2, 3)
+                   and a["shapes"]["latent"][-3:] == (h // 2, w // 2, 3)))
+        log(f"check (c) {name} against {ref}: losses {a['losses']} vs {b['losses']} (equal "
+            f"required); launches {a['counts']}; item shapes {a['shapes']}; run wall "
+            f"{a['wall']:.1f} vs {b['wall']:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"(c) {name}: the run does not train as {ref} does")
+
+
+def phase_serving_options(torch, kern):
+    """Phase 10.  Returns {"export": launches per kernel, "norm": B1's}."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ebfi_chip_export_")
+    try:
+        export = phase_export(torch, kern, tmp)
+        norm = phase_norm_models(torch, kern)
+        phase_data_options(torch, kern, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+    return {"export": export, "norm": norm}
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -2216,6 +2541,8 @@ def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if sys.argv[1:2] == ["--dp-worker"]:  # one rank of a phase-7 launch
         return dp_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--export-worker"]:  # phase 10 (a)'s serving process
+        return export_worker(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -2256,6 +2583,8 @@ def main() -> int:
     adv_launches = phase_adversarial(torch, kern, single)
     torch.cuda.empty_cache()
     gen_launches = phase_generate(torch, kern)
+    torch.cuda.empty_cache()
+    serving = phase_serving_options(torch, kern)
     kernels = []
     for name, r in results.items():
         kernels.append({
@@ -2268,6 +2597,8 @@ def main() -> int:
             "launches_dp_nccl": dp_launches.get(name),
             "launches_adversarial": adv_launches.get(name),
             "launches_generate": sum(gen_launches.values()),
+            "launches_export": serving["export"][name],
+            "launches_norm": serving["norm"] if name == "B1_fac" else 0,
             "f32_route": r.get("f32_route"),
         })
     faulthandler.cancel_dump_traceback_later()

@@ -18,10 +18,11 @@ The container is one uncompressed ``.npz`` per clip, written by
 
 Arrays are memory-mapped from the file (the members are stored, not
 compressed), so a dataset reads only the frames and events a window needs,
-as the H5 readers do.  Items are bit-identical to ``H5ClipDataset.get`` and
-``H5ClipDatasetReal.get`` of the JAX package on the H5 the clip came from.
-Rescaling (a GT resolution other than the stored one) needs ``cv2``, which
-this package does not use: such a config raises.
+as the H5 readers do.  Items are bit-identical to ``H5ClipDataset.get``,
+``H5ClipDatasetFast.get`` and ``H5ClipDatasetReal.get`` of the JAX package
+on the H5 the clip came from.  Frames stored at another resolution than
+the GT one (``scale``/``ori_scale``) are resized as the JAX readers resize
+them with cv2, by :func:`~ebfi_tpu_torch.data.resize.resize_cubic`.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .encodings import events_to_stack, normalize_event_ts
+from .resize import resize_cubic
 
 FORMAT = "ebfi_clip_npz/1"
 _HEADER_READERS = {
@@ -283,14 +285,11 @@ class _ClipReader:
         self.num_images = self.clip["images"].shape[0]
 
     def _stored_frame(self, i: int) -> np.ndarray:
+        """Frame i as stored, bicubic-resized to the GT resolution where it
+        differs (``cv2.resize(..., INTER_CUBIC)`` of the JAX readers)."""
         frame = self.clip["images"][i]
         if frame.shape[:-1] != tuple(self.spec.gt_resolution):
-            raise ValueError(
-                f"{self.path}: frames are stored at {frame.shape[:-1]}, the config asks for "
-                f"{tuple(self.spec.gt_resolution)} (scale {self.config['scale']}, ori_scale "
-                f"{self.config['ori_scale']}); rescaling needs cv2, which this package does "
-                "not use: choose scale/ori_scale that keep the stored resolution"
-            )
+            return resize_cubic(np.asarray(frame), self.spec.gt_resolution[::-1])
         return np.array(frame)
 
     def _event_stack(self, first: int, last: int) -> np.ndarray:
@@ -320,19 +319,18 @@ class _ClipReader:
 class NpzClipDataset(_ClipReader):
     """Synthetic-blur dataset over one clip: periods of NumFramePerPeriod
     sharp frames, the blurry frame the mean of a period's first exposure
-    frames, exposure regimes Fixed, Auto and Custom.  The training-only
-    ``NeedNeighborGT`` of the JAX dataset is not ported: ``True`` raises."""
+    frames, exposure regimes Fixed, Auto and Custom.  ``NeedNeighborGT``
+    adds the item ``neighbor`` (L, NumP, NumF, 2, H, W, 3): for each latent
+    frame the two frames around it within its period (the next two for
+    the first, the last two for the last), augmented as frames.  No train
+    step reads it, in either package; the trainer moves it to the device
+    with the rest of the window."""
 
     def __init__(self, path: str, config: dict):
-        if config.get("NeedNeighborGT", False):
-            raise ValueError(
-                f"{path}: NeedNeighborGT: True asks for the neighbouring GT frames "
-                "(item 'neighbor'), which this package does not yield yet (ROADMAP A5): "
-                "set NeedNeighborGT: False"
-            )
         super().__init__(path, config)
         self.num_frame_per_period = config["NumFramePerPeriod"]
         self.deblur_pretrain = config.get("DeblurPretrain", False)
+        self.need_neighbor_gt = config.get("NeedNeighborGT", False)
         self.interval = self.num_frame_per_period * self.num_period_per_load
         (self.periods, self.latent_idx, self.blurry_idx, self.duty) = compute_period_windows(
             self.num_images,
@@ -364,17 +362,25 @@ class NpzClipDataset(_ClipReader):
         by 255 in f32 (the reference's op order)."""
         return self._frames(indices).mean(0).astype(np.float32) / np.float32(255.0)
 
+    def _neighbors(self, latent: Sequence[int]) -> np.ndarray:
+        """(NumF, 2, H, W, 3) f32: each latent frame's pair of neighbours
+        (``h5dataset.py:375-389`` of the JAX package)."""
+        last = len(latent) - 1
+        pairs = [[i, i + 1] if k == 0 else [i - 1, i] if k == last else [i - 1, i + 1]
+                 for k, i in enumerate(latent)]
+        return np.stack([self._frames(p).astype(np.float32) / 255.0 for p in pairs])
+
     def get(self, index: int, seed: Optional[int] = None) -> Dict[str, np.ndarray]:
         if seed is None:
             seed = random.randint(0, 2**32)
         sequence = self.seq_indices[index]
 
-        latents, blurries, events = [], [], []
+        latents, blurries, events, neighbors = [], [], [], []
         latent_ts, rel_ts, blurry_ts, duties = [], [], [], []
         for (left, right) in sequence:
             all_latent: List[int] = []
             all_blurry: List[List[int]] = []
-            lat_frames, blur_frames, duty_list = [], [], []
+            lat_frames, blur_frames, nei_frames, duty_list = [], [], [], []
             for p in range(left, right + 1):
                 li = self.latent_idx[p]
                 bi = self.blurry_idx[p]
@@ -383,10 +389,14 @@ class NpzClipDataset(_ClipReader):
                 sharp_idx = [li[-1]] if self.deblur_pretrain else li
                 lat_frames.append(self._frames(sharp_idx).astype(np.float32) / 255.0)
                 blur_frames.append(self._blurry(bi))
+                if self.need_neighbor_gt:
+                    nei_frames.append(self._neighbors(li))
                 duty_list.append(self.duty[p])
 
             latents.append(np.stack(lat_frames))        # (NumP, NumF', H, W, 3)
             blurries.append(np.stack(blur_frames))      # (NumP, H, W, 3)
+            if self.need_neighbor_gt:
+                neighbors.append(np.stack(nei_frames))  # (NumP, NumF, 2, H, W, 3)
             events.append(self._event_stack(all_latent[0], all_latent[-1]))
 
             # timestamps normalised by the load interval
@@ -409,7 +419,39 @@ class NpzClipDataset(_ClipReader):
             "exposure": np.stack(duties),       # (L, NumP, 1)
         }
         kinds = {"latent": "frame", "blurry": "frame", "events": "event"}
+        if self.need_neighbor_gt:
+            item["neighbor"] = np.stack(neighbors)
+            kinds["neighbor"] = "frame"
         return self._augment(item, kinds, seed)
+
+
+class NpzClipDatasetFast(NpzClipDataset):
+    """:class:`NpzClipDataset` with every item preloaded, unaugmented, when
+    it is built (port of ``ebfi_tpu/data/h5dataset_fast.py``): a fetch is a
+    lookup plus the augmentation with the fetch's seed, so it changes
+    speed only.  The preload draws no seed from python's ``random`` (the
+    JAX one does, unused), so a run with it draws the same augmentation
+    seeds as one without.  ``NeedNeighborGT`` raises, as in the JAX
+    package."""
+
+    def __init__(self, path: str, config: dict):
+        if config.get("NeedNeighborGT"):
+            raise ValueError(f"{path}: the fast (preloading) dataset does not take "
+                             "NeedNeighborGT, as in the JAX package: set fast: False")
+        self._aug_cfg = config["data_augment"]
+        super().__init__(path, dict(config, data_augment=dict(self._aug_cfg, enabled=False)))
+        self._cache = [super(NpzClipDatasetFast, self).get(i, seed=0) for i in range(len(self))]
+
+    def get(self, index: int, seed: Optional[int] = None) -> Dict[str, np.ndarray]:
+        if seed is None:
+            seed = random.randint(0, 2**32)
+        item = dict(self._cache[index])
+        if self._aug_cfg.get("enabled"):
+            kinds = {"latent": "frame", "blurry": "frame", "events": "event"}
+            spatial = augment({k: item[k] for k in kinds}, kinds, self._aug_cfg, seed,
+                              self.spec.gt_resolution)
+            item.update({k: np.ascontiguousarray(v) for k, v in spatial.items()})
+        return item
 
 
 class NpzClipDatasetReal(_ClipReader):

@@ -28,13 +28,8 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from .clip_dataset import NpzClipDataset, NpzClipDatasetReal
-
-
-def read_datalist(path: str) -> List[str]:
-    """One clip path per line."""
-    with open(path) as f:
-        return [ln.strip() for ln in f if ln.strip()]
+from .clip_dataset import NpzClipDataset, NpzClipDatasetFast, NpzClipDatasetReal
+from .datalist import read_datalist
 
 
 FETCH_THREADS = 2  # item threads of the in-process path
@@ -43,10 +38,15 @@ FETCH_THREADS = 2  # item threads of the in-process path
 _PP_DATASETS: Optional[list] = None
 
 
-def _pp_init(paths, config, real_data):
+def _dataset_class(real_data: bool, fast: bool):
+    if real_data:
+        return NpzClipDatasetReal
+    return NpzClipDatasetFast if fast else NpzClipDataset
+
+
+def _pp_init(paths, config, real_data, fast):
     global _PP_DATASETS
-    cls = NpzClipDatasetReal if real_data else NpzClipDataset
-    _PP_DATASETS = [cls(p, config) for p in paths]
+    _PP_DATASETS = [_dataset_class(real_data, fast)(p, config) for p in paths]
 
 
 def _pp_fetch(di: int, ii: int, seed: int) -> Dict[str, np.ndarray]:
@@ -70,20 +70,24 @@ class EBFIDataLoader:
       seed: shuffle base seed, combined with the epoch (``set_epoch``).
       num_threads: item threads of this process (when num_workers is 0).
       num_workers: worker processes (spawned) when > 0.
+      fast: preload every item of a synthetic-blur clip
+        (:class:`NpzClipDatasetFast`).  As in the JAX loader, the datasets
+        of this process preload only where num_workers is 0 (with workers
+        they serve only the index), and each worker preloads its own.
     """
 
     def __init__(self, sources, dataset_config: dict, batch_size: int = 1,
                  real_data: bool = False, num_workers: int = 0, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, num_threads: int = FETCH_THREADS,
-                 shard_index: int = 0, num_shards: int = 1):
+                 shard_index: int = 0, num_shards: int = 1, fast: bool = False):
         if not 0 <= shard_index < num_shards:
             raise ValueError(f"shard_index {shard_index} is not in [0, {num_shards})")
         if isinstance(sources, str):
             paths = [sources] if sources.endswith(".npz") else read_datalist(sources)
         else:
             paths = list(sources)
-        cls = NpzClipDatasetReal if real_data else NpzClipDataset
-        self._worker_spec = (paths, dataset_config, real_data)
+        cls = _dataset_class(real_data, fast and num_workers == 0)
+        self._worker_spec = (paths, dataset_config, real_data, fast)
         self.datasets = [cls(p, dataset_config) for p in paths]
         self.index = [(di, ii) for di, ds in enumerate(self.datasets) for ii in range(len(ds))]
         self.batch_size = batch_size

@@ -3,7 +3,9 @@
 
 The T-independent trunk (feature extraction, blurriness map, exposure
 decision) runs once per blurry frame; only the tail runs per requested
-timestamp.  Everything runs under ``torch.inference_mode()``.
+timestamp.  The engine's calls run under ``torch.inference_mode()``;
+:func:`interpolate_all`, the multi-timestamp call itself, does not, so
+``tools/export.py`` can export it.
 """
 from __future__ import annotations
 
@@ -78,65 +80,74 @@ class InferenceEngine:
         into the batch in chunks of ``multi_chunk`` (hoisted per frame under
         fast_math); 'scan' runs one timestamp at a time.  outputs='final'
         returns None for sharp."""
-        if mode not in ("batched", "scan"):
-            raise ValueError(f"unknown mode {mode!r}")
-        if outputs not in ("both", "final"):
-            raise ValueError(f"unknown outputs {outputs!r}")
-        m = self.compute_model
         frame, event, ts, gt_ex = self._cast(frame, event, ts, gt_ex)
-        B, H, W, _ = frame.shape
-        N = ts.shape[1]
-        if gt_ex is None:
-            gt_ex = torch.zeros((B, 1), dtype=self.dtype, device=self.device)
-        pt, pb, pl, pr = pad_amounts_to_multiple(H, W, 8, 8)
-        if pt or pb or pl or pr:
-            frame = F.pad(frame, (0, 0, pl, pr, pt, pb))
-            event = F.pad(event, (0, 0, pl, pr, pt, pb))
-        trunk = m.features(frame, event, gt_ex)
+        return interpolate_all(self.compute_model, frame, event, ts, gt_ex, self.multi_chunk,
+                               self._hoist, mode, outputs)
 
-        chunk = min(N, self.multi_chunk)
-        n_chunks = -(-N // chunk)
-        ts_p = torch.cat([ts, ts[:, -1:].expand(B, n_chunks * chunk - N)], dim=1)
-        sharps, finals = [], []
-        if mode == "batched" and self._hoist and m.dual_path and m.residual:
-            # per frame: hoist its T-independent stage partials at batch 1,
-            # then the tail at batch `chunk`
-            per_frame_s, per_frame_f = [], []
-            for b in range(B):
-                tr_f = tuple(x[b : b + 1] for x in trunk)
-                h_f = m.hoist(tr_f)
-                fs, ff = [], []
-                for c in range(n_chunks):
-                    t_c = ts_p[b, c * chunk : (c + 1) * chunk, None]
-                    s, f = m.from_timestamp_shared(tr_f, h_f, t_c)
-                    ff.append(f.float())
-                    if outputs == "both":
-                        fs.append(s.float())
-                per_frame_f.append(torch.cat(ff)[:N])
-                if fs:
-                    per_frame_s.append(torch.cat(fs)[:N])
-            finals = torch.stack(per_frame_f, dim=1)
-            sharps = torch.stack(per_frame_s, dim=1) if per_frame_s else None
-        elif mode == "scan":
-            for i in range(N):
-                s, f = m.from_timestamp(*trunk, ts[:, i : i + 1])
-                finals.append(f.float())
-                if outputs == "both":
-                    sharps.append(s.float())
-            finals = torch.stack(finals)
-            sharps = torch.stack(sharps) if sharps else None
-        else:
-            # fold a chunk of timestamps into the batch; the trunk repeats
-            trunk_rep = tuple(x.repeat_interleave(chunk, dim=0) for x in trunk)
+
+def interpolate_all(m, frame, event, ts, gt_ex, multi_chunk: int, hoist: bool,
+                    mode: str = "batched", outputs: str = "both"):
+    """:meth:`InferenceEngine.interpolate` on inputs already in the compute
+    model ``m``'s dtype and device, without ``inference_mode``: the one
+    implementation of the multi-timestamp call, which the engine runs and
+    ``tools/export.py`` exports.  ``hoist``: the engine's fast_math."""
+    if mode not in ("batched", "scan"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if outputs not in ("both", "final"):
+        raise ValueError(f"unknown outputs {outputs!r}")
+    B, H, W, _ = frame.shape
+    N = ts.shape[1]
+    if gt_ex is None:
+        gt_ex = frame.new_zeros((B, 1))
+    pt, pb, pl, pr = pad_amounts_to_multiple(H, W, 8, 8)
+    if pt or pb or pl or pr:
+        frame = F.pad(frame, (0, 0, pl, pr, pt, pb))
+        event = F.pad(event, (0, 0, pl, pr, pt, pb))
+    trunk = m.features(frame, event, gt_ex)
+
+    chunk = min(N, multi_chunk)
+    n_chunks = -(-N // chunk)
+    ts_p = torch.cat([ts, ts[:, -1:].expand(B, n_chunks * chunk - N)], dim=1)
+    sharps, finals = [], []
+    if mode == "batched" and hoist and m.dual_path and m.residual:
+        # per frame: hoist its T-independent stage partials at batch 1,
+        # then the tail at batch `chunk`
+        per_frame_s, per_frame_f = [], []
+        for b in range(B):
+            tr_f = tuple(x[b : b + 1] for x in trunk)
+            h_f = m.hoist(tr_f)
+            fs, ff = [], []
             for c in range(n_chunks):
-                t_c = ts_p[:, c * chunk : (c + 1) * chunk].reshape(B * chunk, 1)
-                s, f = m.from_timestamp(*trunk_rep, t_c)
-                per_t = lambda o: o.float().reshape(B, chunk, *o.shape[1:]).transpose(0, 1)
-                finals.append(per_t(f))
+                t_c = ts_p[b, c * chunk : (c + 1) * chunk, None]
+                s, f = m.from_timestamp_shared(tr_f, h_f, t_c)
+                ff.append(f.float())
                 if outputs == "both":
-                    sharps.append(per_t(s))
-            finals = torch.cat(finals)[:N]
-            sharps = torch.cat(sharps)[:N] if sharps else None
+                    fs.append(s.float())
+            per_frame_f.append(torch.cat(ff)[:N])
+            if fs:
+                per_frame_s.append(torch.cat(fs)[:N])
+        finals = torch.stack(per_frame_f, dim=1)
+        sharps = torch.stack(per_frame_s, dim=1) if per_frame_s else None
+    elif mode == "scan":
+        for i in range(N):
+            s, f = m.from_timestamp(*trunk, ts[:, i : i + 1])
+            finals.append(f.float())
+            if outputs == "both":
+                sharps.append(s.float())
+        finals = torch.stack(finals)
+        sharps = torch.stack(sharps) if sharps else None
+    else:
+        # fold a chunk of timestamps into the batch; the trunk repeats
+        trunk_rep = tuple(x.repeat_interleave(chunk, dim=0) for x in trunk)
+        for c in range(n_chunks):
+            t_c = ts_p[:, c * chunk : (c + 1) * chunk].reshape(B * chunk, 1)
+            s, f = m.from_timestamp(*trunk_rep, t_c)
+            per_t = lambda o: o.float().reshape(B, chunk, *o.shape[1:]).transpose(0, 1)
+            finals.append(per_t(f))
+            if outputs == "both":
+                sharps.append(per_t(s))
+        finals = torch.cat(finals)[:N]
+        sharps = torch.cat(sharps)[:N] if sharps else None
 
-        crop = lambda o: o[:, :, pt : pt + H, pl : pl + W, :]
-        return (crop(sharps) if sharps is not None else None), crop(finals)
+    crop = lambda o: o[:, :, pt : pt + H, pl : pl + W, :]
+    return (crop(sharps) if sharps is not None else None), crop(finals)

@@ -6,7 +6,8 @@ produce the sharp latent frame at T.  NHWC throughout; the event stack is
 channel-flattened (B, H, W, 2*TB).  ``features`` is the T-independent
 trunk and ``from_timestamp`` the T-dependent tail; ``hoist`` and
 ``from_timestamp_shared`` share per-frame work across the N timestamps
-of one frame.
+of one frame.  ``norm`` ("BN" or "IN") needs ``dual_path=False``, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -49,10 +50,10 @@ class EVFIAutoEx(nn.Module):
         fast_mod: bool = False,
     ):
         super().__init__()
-        if norm is not None:
-            # Modification's fused and hoisted paths read kernel_conv's
-            # weights directly, past any norm, and ResidualControl has none
-            raise NotImplementedError("EVFIAutoEx is ported with norm=None (the shipped model)")
+        # a norm reaches every ConvLayer, as in the JAX module; ResidualControl
+        # (dual_path) raises for one, as the JAX one does, and Modification
+        # then takes its unfused path.  BN uses its running statistics:
+        # the JAX module never passes train=True to these layers
         self.blurry_fashion = blurry_fashion
         self.use_gt_ex, self.fix_ex = use_gt_ex, fix_ex
         self.frozen_ex = frozen_ex

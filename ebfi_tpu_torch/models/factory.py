@@ -122,7 +122,8 @@ def init_weights(model: nn.Module, seed: int, scheme: str = "random") -> nn.Modu
             if isinstance(m, ConvLayer):
                 w = m.conv.weight
                 normal(w, gain * math.sqrt(2.0 / math.prod(w.shape[1:])))
-                m.conv.bias.zero_()
+                if m.conv.bias is not None:  # BN's conv has none
+                    m.conv.bias.zero_()
                 done.add(id(m.conv))
             elif isinstance(m, ResidualControl):
                 for name, p in m.named_parameters(recurse=False):

@@ -10,9 +10,9 @@ FAC runs as kernel B1 (CUDA) or its plain version (CPU).  fused=True: the
 bank is predicted and applied in one kernel, B3 in full mode and B2 in
 tail mode, and never reaches device memory (the plain versions on CPU).
 fused=True takes the fused path only where those kernels take the call
-(leaky ReLU, frame features C1 wide, and on the card C1 = 64 and, in bf16,
+(leaky ReLU, no norm, frame features C1 wide, and on the card C1 = 64 and
 K <= 5), as the JAX package gates its Pallas kernels; otherwise it runs
-the unfused path, which takes any width.
+the unfused path, which takes any width and applies the norm to the bank.
 """
 from __future__ import annotations
 
@@ -43,7 +43,8 @@ class Modification(nn.Module):
         super().__init__()
         C1, K = frame_basech, kernel_size
         self.frame_basech, self.kernel_size = C1, K
-        self.fused_capable = activation == "LeakyReLU"  # the kernels apply leaky ReLU(0.01)
+        # the kernels apply leaky ReLU(0.01) to the conv's output, with no norm
+        self.fused_capable = activation == "LeakyReLU" and norm is None
         self.fused = fused
         self.kernel_conv = ConvLayer(2 * C1, C1 * K * K, 3, 1, 1, activation, norm)
         self.conv1 = ConvLayer(event_ch, C1, 1, 1, 0, activation, norm)

@@ -40,13 +40,6 @@ def on_device(device: torch.device):
     return torch.cuda.device(device)
 
 
-def needs_grad(*tensors: torch.Tensor) -> bool:
-    """Whether a call on these tensors records autograd: outside
-    ``no_grad``/``inference_mode``, with some input requiring grad.  Calls
-    that do not go straight to the forward and save nothing."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
 def plain_vjp(plain, inputs, needs_input_grad, grad_out, range_name: str):
     """Gradients of ``plain(*inputs)`` against ``grad_out``, recomputed
     through autograd of the plain version (the backward of the JAX
@@ -60,3 +53,38 @@ def plain_vjp(plain, inputs, needs_input_grad, grad_out, range_name: str):
         wanted = [x for x, need in zip(leaves, needs_input_grad) if need]
         grads = iter(torch.autograd.grad(out, wanted, grad_out))
     return tuple(next(grads) if need else None for need in needs_input_grad)
+
+
+# The kernels' operator library.  The ops are defined through
+# ``torch.library.Library`` rather than ``torch.library.custom_op``, whose
+# implementations run under ``torch._disable_dynamo``: its first call
+# imports ``torch._dynamo`` (sympy with it), seconds of host time in the
+# first request or training step of every process.
+_LIB = torch.library.Library("ebfi", "DEF")
+
+
+def define_op(schema: str, impl, fake, plain, n_tensors: int, range_name: str):
+    """Define the op ``ebfi::<schema>`` with ``impl`` as its CPU and CUDA
+    implementation, ``fake`` as its fake (and meta) one, and the
+    gradients of ``plain`` through :func:`plain_vjp`.  The op's first
+    ``n_tensors`` arguments are its tensors, the rest plain values passed
+    on to ``plain`` unchanged; a call that records no autograd saves
+    nothing.  Returns the op's overload."""
+    name = schema.split("(")[0]
+    _LIB.define(schema)
+    for key in ("CPU", "CUDA"):
+        _LIB.impl(name, impl, key)
+    torch.library.register_fake(f"ebfi::{name}", fake, lib=_LIB)
+
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:n_tensors])
+        ctx.extra = inputs[n_tensors:]
+
+    def backward(ctx, grad_out):
+        grads = plain_vjp(lambda *a: plain(*a, *ctx.extra), ctx.saved_tensors,
+                          ctx.needs_input_grad[:n_tensors], grad_out, range_name)
+        return (*grads, *([None] * len(ctx.extra)))
+
+    torch.library.register_autograd(f"ebfi::{name}", backward, setup_context=setup_context,
+                                    lib=_LIB)
+    return getattr(torch.ops.ebfi, name).default

@@ -10,16 +10,21 @@ threads on neighbouring channels, so the bank streams once in fully
 coalesced reads and the padded input is never materialised (clamped
 indices replace the replication pad).
 
-Training: the TPU kernel has no backward kernel; its ``custom_vjp``
-recomputes through the XLA twin.  Here a ``torch.autograd.Function`` does
-the same through :func:`fac_plain`.
+The kernel is the custom op ``ebfi::fac`` (``torch.ops.ebfi.fac``), so
+``torch.export`` records it as one node: its implementation is
+:func:`_run` (the launch for a CUDA tensor, :func:`fac_plain` for a CPU
+one), its fake implementation gives the output's shape (and, traced for
+the card, raises where the launch would), and its autograd
+formula recomputes through :func:`fac_plain`, as the TPU kernel's
+``custom_vjp`` recomputes through the XLA twin (the JAX package has no
+backward kernel).
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernel_conv2d import kernel_conv2d
-from ._common import DTYPE_CODES, check_inputs, needs_grad, on_device, plain_vjp, stream_handle
+from ._common import DTYPE_CODES, check_inputs, define_op, on_device, stream_handle
 from .build import check, load_library
 
 
@@ -28,14 +33,20 @@ def fac_plain(x: torch.Tensor, kernel: torch.Tensor, kernel_size: int) -> torch.
     return kernel_conv2d(x, kernel, kernel_size, layout="tap_major")
 
 
-def _launch(x: torch.Tensor, kernel: torch.Tensor, kernel_size: int) -> torch.Tensor:
-    """One launch of B1 on CUDA tensors; no autograd."""
-    K = kernel_size
+def _check(x: torch.Tensor, kernel: torch.Tensor, K: int) -> None:
+    """Raise for a call B1 does not take."""
     B, H, W, C = x.shape
     if K % 2 != 1:
         raise ValueError("kernel_size must be odd")
     if tuple(kernel.shape) != (B, H, W, K * K * C):
         raise ValueError(f"bank shape {tuple(kernel.shape)} does not match x {tuple(x.shape)}, K={K}")
+
+
+def _launch(x: torch.Tensor, kernel: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """One launch of B1 on CUDA tensors; no autograd."""
+    K = kernel_size
+    B, H, W, C = x.shape
+    _check(x, kernel, K)
     check_inputs("kernel_conv2d_cuda", {"x": x, "kernel": kernel}, x.dtype)
     out = torch.empty_like(x)
     lib = load_library()
@@ -57,34 +68,28 @@ def _run(x: torch.Tensor, kernel: torch.Tensor, kernel_size: int) -> torch.Tenso
     return _launch(x, kernel, kernel_size)
 
 
-class _FacFunction(torch.autograd.Function):
-    """B1 with a backward: the JAX package's ``custom_vjp`` of
-    ``kernel_conv2d_pallas`` (``fac.py:99-117``), which recomputes through
-    the XLA twin, recomputes here through :func:`fac_plain`."""
+def _impl(x, kernel, kernel_size):
+    return _run(x.contiguous(), kernel.contiguous(), kernel_size)
 
-    @staticmethod
-    def forward(ctx, x, kernel, kernel_size):
-        ctx.kernel_size = kernel_size
-        ctx.save_for_backward(x, kernel)
-        return _run(x, kernel, kernel_size)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        K = ctx.kernel_size
-        gx, gk = plain_vjp(lambda a, b: fac_plain(a, b, K), ctx.saved_tensors,
-                           ctx.needs_input_grad[:2], grad_out, "ebfi::fac_backward_plain")
-        return gx, gk, None
+def _fake(x, kernel, kernel_size):
+    if x.device.type != "cpu":  # traced for the card: raise where the launch would
+        _check(x, kernel, kernel_size)
+    return x.new_empty(x.shape)
+
+
+# the backward: kernel_conv2d_pallas's custom_vjp's (fac.py:99-117)
+_fac_op = define_op("fac(Tensor x, Tensor kernel, int kernel_size) -> Tensor",
+                    _impl, _fake, fac_plain, 2, "ebfi::fac_backward_plain")
 
 
 def kernel_conv2d_cuda(x: torch.Tensor, kernel: torch.Tensor, kernel_size: int) -> torch.Tensor:
     """FAC with replication padding.  x (B, H, W, C), kernel
     (B, H, W, K*K*C) tap-major -> (B, H, W, C) in x's dtype, f32
-    accumulation.  CUDA tensors launch the kernel; CPU tensors run
-    :func:`fac_plain`.  Where autograd records, the result's gradient
-    recomputes through :func:`fac_plain`."""
-    if needs_grad(x, kernel):
-        return _FacFunction.apply(x, kernel, kernel_size)
-    return _run(x, kernel, kernel_size)
+    accumulation, through ``ebfi::fac``: CUDA tensors launch the kernel;
+    CPU tensors run :func:`fac_plain`.  Where autograd records, the
+    result's gradient recomputes through :func:`fac_plain`."""
+    return _fac_op(x, kernel, kernel_size)
 
 
 kernel_conv2d_cuda.launches = 0

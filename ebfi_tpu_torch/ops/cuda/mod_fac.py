@@ -33,10 +33,16 @@ Both routes take C = 64 and odd K <= 5 (the halo's border of 2 covers a
 5x5 FAC).  A CUDA call either takes its route or raises: nothing falls
 back to another route.
 
-Training: the TPU kernels have no backward kernels; their ``custom_vjp``s
-recompute through the XLA twins.  Here ``torch.autograd.Function``s do the
-same through the plain versions, on CUDA and CPU tensors alike; calls that
-record no autograd go straight to the forward and save nothing.
+The kernels are the custom ops ``ebfi::mod_fac`` (B3) and
+``ebfi::mod_fac_shared`` (B2, B2p), so ``torch.export`` records each as
+one node with the raw weights as its inputs (the packing runs inside the
+op): their implementations launch the kernel for CUDA tensors and run the
+plain version for CPU tensors, their fake implementations give the output
+shapes (B2p's rows2-packed one included) and, traced for the card, raise
+where the launch would, and their autograd formulas
+recompute through the plain versions, as the TPU kernels' ``custom_vjp``s
+recompute through the XLA twins (the JAX package has no backward
+kernels).  A call that records no autograd saves nothing.
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernel_conv2d import kernel_conv2d
-from ._common import check_inputs, needs_grad, on_device, plain_vjp, stream_handle
+from ._common import check_inputs, define_op, on_device, stream_handle
 from .build import check, load_library
 
 KERNEL_CHANNELS = 64  # the CUDA kernels' channel tile: C must equal it
@@ -216,15 +222,22 @@ def _count(fn, route, packed=False):
     fn.launches_packed += packed
 
 
+def _check_fused(ev, ff, wk, bk, K) -> str:
+    """B3's route for these arguments; raises for a call it does not take."""
+    what = "modification_fac_fused"
+    _check_weights(what, ev.shape[-1], K, wk, bk)
+    route = _route(what, ev.dtype, K)
+    if tuple(ff.shape) != tuple(ev.shape):
+        raise ValueError(f"ff shape {tuple(ff.shape)} != ev shape {tuple(ev.shape)}")
+    return route
+
+
 def _launch_fused(ev, ff, wk, bk, kernel_size: int) -> torch.Tensor:
     """One launch of B3 on CUDA tensors; no autograd."""
     what = "modification_fac_fused"
     K = kernel_size
     B, H, W, C = ev.shape
-    _check_weights(what, C, K, wk, bk)
-    route = _route(what, ev.dtype, K)
-    if tuple(ff.shape) != tuple(ev.shape):
-        raise ValueError(f"ff shape {tuple(ff.shape)} != ev shape {tuple(ev.shape)}")
+    route = _check_fused(ev, ff, wk, bk, K)
     b32 = bk.float().contiguous()
     out = torch.empty_like(ev)
     entry = _ENTRIES[route][0]
@@ -250,35 +263,43 @@ def _run_fused(ev, ff, wk, bk, kernel_size: int) -> torch.Tensor:
     return _launch_fused(ev, ff, wk, bk, kernel_size)
 
 
-class _ModFacFunction(torch.autograd.Function):
-    """B3 with a backward through :func:`mod_fac_plain`, as the JAX
-    ``custom_vjp`` of ``modification_fac_fused`` recomputes through its
-    XLA twin (``mod_fac.py:447-461``)."""
+def _fused_impl(ev, ff, wk, bk, kernel_size):
+    return _run_fused(ev.contiguous(), ff.contiguous(), wk, bk, kernel_size)
 
-    @staticmethod
-    def forward(ctx, ev, ff, wk, bk, kernel_size):
-        ctx.kernel_size = kernel_size
-        ctx.save_for_backward(ev, ff, wk, bk)
-        return _run_fused(ev, ff, wk, bk, kernel_size)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        K = ctx.kernel_size
-        grads = plain_vjp(lambda *a: mod_fac_plain(*a, K), ctx.saved_tensors,
-                          ctx.needs_input_grad[:4], grad_out, "ebfi::mod_fac_backward_plain")
-        return (*grads, None)
+def _fused_fake(ev, ff, wk, bk, kernel_size):
+    if ev.device.type != "cpu":  # traced for the card: raise where the launch would
+        _check_fused(ev, ff, wk, bk, kernel_size)
+    return ev.new_empty(ev.shape)
+
+
+# the backward: modification_fac_fused's custom_vjp's (mod_fac.py:447-461)
+_mod_fac_op = define_op(
+    "mod_fac(Tensor ev, Tensor ff, Tensor wk, Tensor bk, int kernel_size) -> Tensor",
+    _fused_impl, _fused_fake, mod_fac_plain, 4, "ebfi::mod_fac_backward_plain")
 
 
 def modification_fac_fused(ev, ff, wk, bk, kernel_size: int = 5) -> torch.Tensor:
     """lrelu(conv3x3(concat(ev, ff)) + bk) bank, FAC-applied to ev, with the
     bank kept on chip.  ev, ff (B, H, W, C); wk (3, 3, 2C, K*K*C) HWIO with
-    tap-major output channels; bk (K*K*C,).  CUDA tensors launch B3 (on
-    the tensor cores: bf16, or f32 as 3xTF32); CPU tensors run
-    :func:`mod_fac_plain`.  Where autograd records, the gradients of all
-    four inputs recompute through :func:`mod_fac_plain`."""
-    if needs_grad(ev, ff, wk, bk):
-        return _ModFacFunction.apply(ev, ff, wk, bk, kernel_size)
-    return _run_fused(ev, ff, wk, bk, kernel_size)
+    tap-major output channels; bk (K*K*C,).  Through ``ebfi::mod_fac``:
+    CUDA tensors launch B3 (on the tensor cores: bf16, or f32 as 3xTF32);
+    CPU tensors run :func:`mod_fac_plain`.  Where autograd records, the
+    gradients of all four inputs recompute through :func:`mod_fac_plain`."""
+    return _mod_fac_op(ev, ff, wk, bk, kernel_size)
+
+
+def _check_shared(ev, ff, wk, bk, K, packed_rows2) -> str:
+    """B2's route for these arguments; raises for a call it does not take."""
+    what = "modification_fac_fused_shared"
+    BN, H, W, C = ev.shape
+    B = ff.shape[0]
+    _check_weights(what, C, K, wk, bk)
+    route = _route(what, ev.dtype, K)
+    _check_rows2(H, packed_rows2)
+    if tuple(ff.shape[1:]) != (H, W, C) or B == 0 or BN % B:
+        raise ValueError(f"ff shape {tuple(ff.shape)} does not divide ev shape {tuple(ev.shape)}")
+    return route
 
 
 def _launch_shared(ev, ff, wk, bk, kernel_size: int, packed_rows2: bool) -> torch.Tensor:
@@ -287,11 +308,7 @@ def _launch_shared(ev, ff, wk, bk, kernel_size: int, packed_rows2: bool) -> torc
     K = kernel_size
     BN, H, W, C = ev.shape
     B = ff.shape[0]
-    _check_weights(what, C, K, wk, bk)
-    route = _route(what, ev.dtype, K)
-    _check_rows2(H, packed_rows2)
-    if tuple(ff.shape[1:]) != (H, W, C) or B == 0 or BN % B:
-        raise ValueError(f"ff shape {tuple(ff.shape)} does not divide ev shape {tuple(ev.shape)}")
+    route = _check_shared(ev, ff, wk, bk, K, packed_rows2)
     N = BN // B
     b32 = bk.float().contiguous()
     shape = (BN, H // 2, W, 2 * C) if packed_rows2 else (BN, H, W, C)
@@ -323,27 +340,25 @@ def _run_shared(ev, ff, wk, bk, kernel_size: int, packed_rows2: bool) -> torch.T
     return _launch_shared(ev, ff, wk, bk, kernel_size, packed_rows2)
 
 
-class _ModFacSharedFunction(torch.autograd.Function):
-    """B2 and B2p with a backward through :func:`mod_fac_shared_plain`, as
-    the JAX ``custom_vjp``s of ``modification_fac_fused_shared`` and
-    ``_shared_packed`` recompute through the split XLA twin, with the rows2
-    pack for B2p (``mod_fac.py:384-389``, ``:419-425``).  Like the JAX
-    backward, it ignores the forward's rounding of the ff half plus bias
-    to the input dtype."""
+def _shared_impl(ev, ff, wk, bk, kernel_size, packed_rows2):
+    return _run_shared(ev.contiguous(), ff.contiguous(), wk, bk, kernel_size, packed_rows2)
 
-    @staticmethod
-    def forward(ctx, ev, ff, wk, bk, kernel_size, packed_rows2):
-        ctx.kernel_size, ctx.packed_rows2 = kernel_size, packed_rows2
-        ctx.save_for_backward(ev, ff, wk, bk)
-        return _run_shared(ev, ff, wk, bk, kernel_size, packed_rows2)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        K, packed = ctx.kernel_size, ctx.packed_rows2
-        grads = plain_vjp(lambda *a: mod_fac_shared_plain(*a, K, packed), ctx.saved_tensors,
-                          ctx.needs_input_grad[:4], grad_out,
-                          "ebfi::mod_fac_shared_backward_plain")
-        return (*grads, None, None)
+def _shared_fake(ev, ff, wk, bk, kernel_size, packed_rows2):
+    if ev.device.type != "cpu":  # traced for the card: raise where the launch would
+        _check_shared(ev, ff, wk, bk, kernel_size, packed_rows2)
+    BN, H, W, C = ev.shape
+    return ev.new_empty((BN, H // 2, W, 2 * C) if packed_rows2 else (BN, H, W, C))
+
+
+# the backward: the custom_vjps' of modification_fac_fused_shared and
+# _shared_packed, through the split XLA twin with the rows2 pack for B2p
+# (mod_fac.py:384-389, :419-425); like them, it ignores the forward's
+# rounding of the ff half plus bias to the input dtype
+_mod_fac_shared_op = define_op(
+    "mod_fac_shared(Tensor ev, Tensor ff, Tensor wk, Tensor bk, int kernel_size, "
+    "bool packed_rows2) -> Tensor",
+    _shared_impl, _shared_fake, mod_fac_shared_plain, 4, "ebfi::mod_fac_shared_backward_plain")
 
 
 def modification_fac_fused_shared(ev, ff, wk, bk, kernel_size: int = 5,
@@ -354,12 +369,11 @@ def modification_fac_fused_shared(ev, ff, wk, bk, kernel_size: int = 5,
     packed_rows2 (H even) stores the same values rows2-packed, (B*N, H/2,
     W, 2C): image row 2r in channels [0, C) of packed row r, row 2r + 1 in
     [C, 2C) (``modification_fac_fused_shared_packed`` of the JAX package).
-    CUDA tensors launch B2 (tensor cores: bf16, or f32 as 3xTF32); CPU
-    tensors run :func:`mod_fac_shared_plain`.  Where autograd records, the
-    gradients recompute through :func:`mod_fac_shared_plain`."""
-    if needs_grad(ev, ff, wk, bk):
-        return _ModFacSharedFunction.apply(ev, ff, wk, bk, kernel_size, packed_rows2)
-    return _run_shared(ev, ff, wk, bk, kernel_size, packed_rows2)
+    Through ``ebfi::mod_fac_shared``: CUDA tensors launch B2 (tensor cores:
+    bf16, or f32 as 3xTF32); CPU tensors run :func:`mod_fac_shared_plain`.
+    Where autograd records, the gradients recompute through
+    :func:`mod_fac_shared_plain`."""
+    return _mod_fac_shared_op(ev, ff, wk, bk, kernel_size, packed_rows2)
 
 
 for _fn in (modification_fac_fused, modification_fac_fused_shared):

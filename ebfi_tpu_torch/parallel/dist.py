@@ -180,6 +180,5 @@ def spatial_shardings(*args, **kwargs):
     """H-sharded spatial parallelism (``mesh.py::spatial_shardings``) has
     no counterpart in the port yet."""
     raise NotImplementedError(
-        "spatial (H-sharded) parallelism is not ported to ebfi_tpu_torch yet (ROADMAP.md, "
-        "queue A, A6)"
+        "spatial (H-sharded) parallelism is not ported to ebfi_tpu_torch yet"
     )

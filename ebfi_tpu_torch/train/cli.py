@@ -89,6 +89,7 @@ def _make_loader(cfg: dict, shard_index: int, num_shards: int, real_data: bool,
         real_data=real_data,
         seed=seed,
         num_threads=cfg.get("num_workers", 2),
+        fast=cfg.get("fast", False),
     )
 
 

@@ -40,7 +40,7 @@ parallelism its BN statistics and gradients are the global batch's
 range ``ebfi::adversarial``.
 
 Not ported yet, and raising ``NotImplementedError``: H-sharded spatial
-parallelism (ROADMAP.md, queue A, A6).
+parallelism.
 """
 from __future__ import annotations
 
@@ -159,8 +159,7 @@ def make_train_step(
     updated in place and returned."""
     if spatial:
         raise NotImplementedError(
-            "spatial (H-sharded) training is not ported to ebfi_tpu_torch yet (ROADMAP.md, "
-            "queue A, A6)"
+            "spatial (H-sharded) parallelism is not ported to ebfi_tpu_torch yet"
         )
     loss_fn = make_loss_fn(detail_enabled, phase_switch_iter, compute_dtype, world)
     lpips, w_lpips = build_lpips_term(loss_cfg)

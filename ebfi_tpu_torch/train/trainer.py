@@ -59,7 +59,8 @@ def device_prefetch(iterator, device: torch.device, n_prefetch: int = 2) -> Iter
 class Trainer:
     def __init__(self, config_parser, model, state: TrainState, train_step, eval_step,
                  train_loader, valid_loader=None, writer=None, model_name: str = "EVFIAutoEx",
-                 use_gt_ex: bool = True, device="cpu"):
+                 use_gt_ex: bool = True, device=None):
+        """``device``: where windows go; by default the model's."""
         self.cp = config_parser
         self.model = model
         self.state = state
@@ -70,6 +71,8 @@ class Trainer:
         self.writer = writer
         self.model_name = model_name
         self.use_gt_ex = use_gt_ex
+        if device is None:
+            device = next(model.parameters()).device
         self.device = torch.device(device)
         self.logger = logging.getLogger("trainer")
 

@@ -157,29 +157,31 @@ def test_real_blur_dataset_equals_h5(clip, noise):
 
 
 def test_rescaling_config_raises_naming_the_resolutions(clip):
-    _, npz = clip
-    ds = NpzClipDataset(npz, _config(scale=1, ori_scale="down2"))
-    with pytest.raises(ValueError, match=r"\(32, 32\).*\(16, 16\)"):
-        ds.get(0, seed=0)
+    """A config whose GT resolution (16, 16) is not the stored one (32, 32)
+    resizes the frames as the JAX dataset does with cv2 (it raised before
+    the numpy bicubic was ported): the items are equal."""
+    h5, npz = clip
+    cfg = _config(scale=1, ori_scale="down2")
+    got, want = NpzClipDataset(npz, cfg).get(0, seed=0), H5ClipDataset(h5, cfg).get(0, seed=0)
+    assert got["latent"].shape[-3:] == (16, 16, 3)
+    assert_items_equal(got, want)
 
 
 @pytest.mark.parametrize("need", ["absent", False, True])
 def test_need_neighbor_gt_raises_until_ported(clip, need):
-    """C5: NeedNeighborGT: True asks for the 'neighbor' item the JAX
-    dataset yields and this package does not: it raises, naming the option
-    and ROADMAP A5.  False or absent builds as before, and so does 'fast'
-    (it changes the loader's speed only)."""
+    """NeedNeighborGT: True yields the 'neighbor' item as the JAX dataset
+    does (it raised before it was ported); False or absent yields none.
+    The items equal the JAX dataset's either way, and a 'fast' key in the
+    dataset config changes nothing (the loader reads it)."""
     h5, npz = clip
     cfg = _config(fast=True)
     if need != "absent":
         cfg["NeedNeighborGT"] = need
-    if need is True:
-        with pytest.raises(ValueError, match=r"NeedNeighborGT.*A5"):
-            NpzClipDataset(npz, cfg)
-        return
     got_ds, want_ds = NpzClipDataset(npz, cfg), H5ClipDataset(h5, cfg)
     assert len(got_ds) == len(want_ds) > 0
-    assert_items_equal(got_ds.get(0, seed=5), want_ds.get(0, seed=5))
+    got = got_ds.get(0, seed=5)
+    assert ("neighbor" in got) == (need is True)
+    assert_items_equal(got, want_ds.get(0, seed=5))
 
 
 def test_write_clip_npz_equals_repacked_h5(clip, tmp_path):

@@ -14,7 +14,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "ebfi_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ebfi_tpu", "h5py", "yaml", "cv2"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ebfi_tpu", "h5py", "yaml", "cv2",
+             "matplotlib"}
 
 
 def port_sources():
@@ -43,7 +44,7 @@ def test_no_forbidden_imports(path):
 def test_import_without_jax():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'ebfi_tpu', 'h5py', 'yaml', 'cv2'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'ebfi_tpu', 'h5py', 'yaml', 'cv2', 'matplotlib'):\n"
         "    sys.modules[m] = None\n"
         "import ebfi_tpu_torch, ebfi_tpu_torch.models, ebfi_tpu_torch.infer\n"
         "import ebfi_tpu_torch.ops.cuda, chip_smoke\n"
@@ -60,6 +61,9 @@ def test_import_without_jax():
         "import ebfi_tpu_torch.models.superslomo, ebfi_tpu_torch.models.library\n"
         "import ebfi_tpu_torch.ops.dcn_v2, ebfi_tpu_torch.ops.dcn_modules\n"
         "import ebfi_tpu_torch.data.generate, ebfi_tpu_torch.data.packager\n"
+        "import ebfi_tpu_torch.tools.export, ebfi_tpu_torch.utils.flow_vis\n"
+        "import ebfi_tpu_torch.utils.profiling, ebfi_tpu_torch.data.legacy_util\n"
+        "import ebfi_tpu_torch.data.datalist, ebfi_tpu_torch.data.resize\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'ebfi_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
     )

@@ -179,7 +179,7 @@ def test_exposure_step_matches_jax(fashion):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="spatial"):
         make_train_step(spatial=True)
     # the adversarial and perceptual terms are ported (test_torch_adversarial.py and
     # test_torch_lpips.py hold them against JAX); the adversarial one needs its state
