@@ -110,7 +110,20 @@ seconds elapsed:
    ``train.cli.main`` on the shipped f32 config with
    ``train_dataloader.fast``, and with ``NeedNeighborGT`` on a config that
    rescales (GT at half the stored resolution), each against the same run
-   without the option: equal losses step by step (cuDNN deterministic).
+   without the option: equal losses step by step (cuDNN deterministic);
+11. spatial parallelism (DP x SP): (a) B1's band mode at the serving shape
+   (B=4, 360x640x64, K=5), f32 and bf16, cut into 2 bands of 180 rows with
+   their 2 + 2 halo rows: each band against the plain version (TOL_REL)
+   and against whole-image B1's rows, timed over both bands beside
+   whole-image B1 on the same image; (b) three Adam steps of the shipped
+   model (batch 8, 128x128 crops), f32 and bf16 FastVariants, through
+   ``make_train_step(spatial=spatial_shardings(2))`` on two gloo ranks on
+   the one card (this script with ``--dp-worker SPEC``), against the
+   unsharded step in this process: losses within 1e-5 relative in f32
+   (1e-2 in bf16), parameters within 2 * lr per step (the ranks bitwise
+   equal), B1's band mode launched on every step and B1, B3 and B2 never;
+   ms per iteration and each rank's peak memory beside the unsharded
+   step's (two ranks sharing one card: not a speed figure).
 
 The line before the last is a JSON object with the kernels' numbers
 (``launches_train``: B1's launches in run (a), validation forwards
@@ -120,8 +133,10 @@ process; ``launches_generate``: all kernels' launches in phase 9 (a)'s
 generator run, 0: no FAC kernel is on that path; ``launches_export``: the
 kernel's launches by phase 10 (a)'s exported programs; ``launches_norm``:
 B1's in phase 10 (b), 0 for the others; ``f32_route``: B2, B2p and
-B3's f32 numbers from phase 3, with their launches in phase 4 (d)); the
-last line is ``{"ok": true,
+B3's f32 numbers from phase 3, with their launches in phase 4 (d);
+``launches_spatial``: each kernel's launches on rank 0 in phase 11 (b)'s
+f32 and bf16 runs; the row ``B1_fac_band``: B1's band mode, phase 11 (a)'s
+f32 numbers, its launches those of phase 11 (b)); the last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises and
 the run exits non-zero; without a CUDA card it exits 2 and prints no
 result.
@@ -1243,7 +1258,9 @@ def dp_worker(spec_path: str) -> int:
     its parameters and losses; (2) runs ``ebfi_tpu_torch.train.cli.main``
     on each config of the spec, with launch counts zeroed before each run,
     then times its steady step and profiles one.  Writes its results to
-    the spec's ``out`` (``%d`` = rank)."""
+    the spec's ``out`` (``%d`` = rank); (3) with ``spatial_check`` (phase
+    11 (b)), takes SP_STEPS Adam steps of the shipped model through the
+    spatial step on its band of the whole batches."""
     import logging
 
     import torch
@@ -1293,6 +1310,9 @@ def dp_worker(spec_path: str) -> int:
                           "routes": kern.route_counts()}
             torch.save(trained_params(state), spec["out"] % rank + f".{label}.pt")
             del model, state, updater
+
+    if spec.get("spatial_check"):
+        res.update(spatial_worker(torch, kern, spec, device, sync))
 
     class Lines(logging.Handler):
         def __init__(self):
@@ -2228,6 +2248,8 @@ DATA_ITERS = 3
 # (80x96, whose sides the loss's 5-level Laplacian pyramid divides)
 DATA_CLIP = (65, 160, 192)
 KERNEL_OF = {"fac": "B1_fac", "mod_fac": "B3_mod_fac", "mod_fac_shared": "B2_mod_fac_shared"}
+KERNEL_COUNTER = {"B1_fac": "fac", "B3_mod_fac": "mod_fac", "B2_mod_fac_shared": "mod_fac_shared",
+                  "B2p_mod_fac_shared_packed": "mod_fac_shared"}
 
 
 def export_requests(torch, num_t):
@@ -2518,6 +2540,226 @@ def phase_serving_options(torch, kern):
     return {"export": export, "norm": norm}
 
 
+# ---------------------------------------------------------------------- spatial
+
+SP_BATCH, SP_HW, SP_STEPS = 8, 128, 3  # (b): the shipped batch and crops, Adam steps
+SP_BANDS = 2
+SP_LOSS_TOL = {"f32": 1e-5, "bf16": 1e-2}  # as tests/test_torch_distributed.py holds DP
+SP_CASES = [["f32", MODEL_CFG, False],
+            ["bf16", {**MODEL_CFG, "args": {**MODEL_CFG["args"], "FastVariants": True}}, True]]
+
+
+def band_parts(torch, x, bank, bands):
+    """Each band of an image as B1's band mode takes it: its rows with
+    their (K-1)/2 halo rows above and below, the edge row replicated at the
+    image's own top and bottom (what ``halo_rows`` gives), and its rows of
+    the bank."""
+    from ebfi_tpu_torch.ops.kernel_conv2d import replicate_pad
+
+    p, n = (K - 1) // 2, x.shape[1] // bands
+    xp = replicate_pad(x, p, dims=(1,))
+    return [(xp[:, j * n:(j + 1) * n + 2 * p].contiguous(), bank[:, j * n:(j + 1) * n].contiguous())
+            for j in range(bands)]
+
+
+def fac_band_work(B, h, w, bands, dtype):
+    """(bytes, flops) of B1's band mode over every band of a B x h x w
+    image: each band's rows with their halo and its bank read once, its
+    output written once."""
+    s = 4 if dtype == "float32" else 2
+    n = h // bands
+    per = (B * (n + K - 1) * w * C + B * n * w * K * K * C + B * n * w * C) * s
+    return bands * per, 2 * K * K * C * B * h * w
+
+
+def phase_fac_band(torch, kern):
+    """11 (a): B1's band mode at the serving shape (B=4, 360x640x64, K=5),
+    cut into SP_BANDS bands with their halos, in f32 and bf16: each band
+    against the plain version in f32 on the same inputs (TOL_REL) and
+    against whole-image B1's rows; then timed over every band beside
+    whole-image B1 on the same image (CUDA events)."""
+    rng = np.random.default_rng(SEED + 11)
+    B, hm, wm = 4, H // 2, W // 2
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        x = torch.from_numpy(rng.standard_normal((B, hm, wm, C), dtype=np.float32)).to("cuda", dt)
+        bank = torch.from_numpy(rng.standard_normal((B, hm, wm, K * K * C), dtype=np.float32)
+                                ).to("cuda", dt)
+        parts = band_parts(torch, x, bank, SP_BANDS)
+        n = hm // SP_BANDS
+        err, tol, whole_diff = 0.0, 0.0, 0.0
+        with torch.inference_mode():
+            whole = kern.kernel_conv2d_cuda(x, bank, K)
+            for j, (xr, bk) in enumerate(parts):
+                got = kern.fac_band_cuda(xr, bk, K).float()
+                ref = kern.fac_band_plain(xr.float(), bk.float(), K)
+                err = max(err, (got - ref).abs().max().item())
+                tol = max(tol, TOL_REL[dname] * ref.abs().max().item())
+                whole_diff = max(whole_diff,
+                                 (got - whole[:, j * n:(j + 1) * n].float()).abs().max().item())
+                del ref
+            torch.cuda.synchronize()
+            ok = err <= tol and whole_diff <= tol
+            log(f"check B1 band {dname} B={B} {hm}x{wm}x{C} K={K} in {SP_BANDS} bands of {n} rows "
+                f"+ {K - 1} halo rows: max_abs_err={err:.3e} tol={tol:.3e} (plain version in f32 "
+                f"on the same inputs); against whole-image B1's rows: max abs diff "
+                f"{whole_diff:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"B1 band {dname}: the band mode disagrees")
+            ms = cuda_ms(lambda: [kern.fac_band_cuda(xr, bk, K) for xr, bk in parts], reps=5)
+            whole_ms = cuda_ms(lambda: kern.kernel_conv2d_cuda(x, bank, K), reps=5)
+            plain_ms = cuda_ms(lambda: [kern.fac_band_plain(xr, bk, K) for xr, bk in parts],
+                               reps=2)
+        nbytes, flops = fac_band_work(B, hm, wm, SP_BANDS, dname)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dname] * 1e3
+        out[dname] = dict(
+            max_abs_err=err, whole_image_max_abs_diff=whole_diff, ms=ms, whole_image_ms=whole_ms,
+            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            shape=f"B={B} {SP_BANDS}x({n}+{K - 1})x{wm}x{C} K={K}")
+        log(f"time B1 band {dname} {out[dname]['shape']}: {ms:.3f} ms for the {SP_BANDS} bands "
+            f"(whole-image B1 on the same image {whole_ms:.3f} ms), plain {plain_ms:.3f} ms, "
+            f"bound {out[dname]['bound_ms']:.3f} ms ({out[dname]['bound_by']}; "
+            f"{nbytes / ms / 1e6:.0f} GB/s); {card_identity()}")
+        del x, bank, parts, whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def spatial_batches(path):
+    rng = np.random.default_rng(SEED + 12)
+    arrays = {}
+    for i in range(SP_STEPS):
+        b = {"frame": rng.uniform(0, 1, (SP_BATCH, SP_HW, SP_HW, 3)),
+             "event": rng.uniform(0, 2, (SP_BATCH, SP_HW, SP_HW, 2 * MODEL_CFG["args"]["TB"])),
+             "t": rng.uniform(0, 1, (SP_BATCH, 1)),
+             "target": rng.uniform(0, 1, (SP_BATCH, SP_HW, SP_HW, 3))}
+        arrays.update({f"{k}_{i}": v.astype(np.float32) for k, v in b.items()})
+    np.savez(path, **arrays)
+    return arrays
+
+
+def spatial_steps(torch, kern, device, sync, batches, cfg, bf16, spec=None):
+    """SP_STEPS Adam steps of ``cfg`` from the seed's training init on the
+    whole batches (D = 1), through the spatial step with ``spec``, or the
+    unsharded step without one: losses, ms per step (host clock around
+    synchronised steps), peak memory, launches, and the trained state."""
+    from ebfi_tpu_torch.models import build_model, init_weights
+    from ebfi_tpu_torch.parallel import broadcast_module_
+    from ebfi_tpu_torch.train import TrainState, build_optimizer, make_train_step
+
+    model = init_weights(build_model(cfg), SEED, scheme="train").to(device)
+    if spec is not None:
+        broadcast_module_(model)
+    updater, _ = build_optimizer(model, {"name": "Adam", "args": {"lr": DP_LR}}, spatial=spec)
+    step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None, spatial=spec)
+    state, losses, ms = TrainState(model, updater), [], []
+    sync()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kern.reset_launch_counts()
+    for i in range(SP_STEPS):
+        b = {k: torch.from_numpy(batches[f"{k}_{i}"]).to(device)
+             for k in ("frame", "event", "t", "target")}
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["train_loss"]))
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    return {"losses": losses, "ms": ms, "peak_bytes": peak,
+            "launches": {**kern.launch_counts(), **kern.band_launch_counts()},
+            "routes": kern.route_counts()}, state
+
+
+def spatial_worker(torch, kern, spec, device, sync):
+    """11 (b) on one rank: the grid of ``spatial_check``'s model_parallel,
+    then each case's steps; the trained parameters saved beside the
+    spec's ``out``."""
+    from ebfi_tpu_torch.parallel import local_shard_info, spatial_shardings
+
+    sc = spec["spatial_check"]
+    rank = local_shard_info()[0]
+    batches = dict(np.load(sc["batches"]))
+    sp = spatial_shardings(sc["model_parallel"])
+    res = {"grid": [sp.data, sp.model, sp.data_index, sp.band_index]}
+    for label, cfg, bf16 in sc["cases"]:
+        r, state = spatial_steps(torch, kern, device, sync, batches, cfg, bf16, sp)
+        res["sp_" + label] = r
+        torch.save(trained_params(state), spec["out"] % rank + f".sp_{label}.pt")
+        del state
+    return res
+
+
+def phase_spatial(torch, kern):
+    """Phase 11: B1's band mode (a), then (b) the spatial step of the
+    shipped model on SP_BANDS gloo ranks on the one card (NCCL refuses two
+    ranks on one device; the halos travel through host copies) against
+    the unsharded step in this process.  Returns the band row's numbers
+    and the launches of each run."""
+    t0 = time.perf_counter()
+    band = phase_fac_band(torch, kern)
+    tmp = tempfile.mkdtemp(prefix="ebfi_chip_sp_")
+    runs = {}
+    try:
+        batches = spatial_batches(os.path.join(tmp, "batches.npz"))
+        spec = dp_spec(tmp, "sp", backend="gloo", device="cuda:0", spatial_check={
+            "batches": os.path.join(tmp, "batches.npz"), "model_parallel": SP_BANDS,
+            "cases": SP_CASES})
+        launch_ranks(f"spatial 11 (b) gloo, {SP_BANDS} ranks (1 x {SP_BANDS}) on one card",
+                     SP_BANDS, ["chip_smoke.py", "--dp-worker", spec])
+        ranks = read_ranks(spec, SP_BANDS)
+        for label, cfg, bf16 in SP_CASES:
+            one, state = spatial_steps(torch, kern, torch.device("cuda"), torch.cuda.synchronize,
+                                       batches, cfg, bf16)
+            want = trained_params(state)
+            del state
+            got = [torch.load(rank_file(spec, r) + f".sp_{label}.pt", weights_only=True)
+                   for r in range(SP_BANDS)]
+            same = all(torch.equal(got[0][k], g[k]) for g in got[1:] for k in want)
+            diffs = torch.cat([(got[0][k] - want[k]).abs().flatten() for k in want])
+            bound = 2 * DP_LR * SP_STEPS * 1.001
+            rb = [r["sp_" + label] for r in ranks]
+            loss_rel = float(np.max(np.abs(np.array(rb[0]["losses"]) - one["losses"])
+                                    / np.abs(one["losses"])))
+            ln = [r["launches"] for r in rb]
+            ok = (same and diffs.max().item() <= bound and loss_rel <= SP_LOSS_TOL[label]
+                  and all(r["losses"] == rb[0]["losses"] for r in rb)
+                  and all(n["fac_band"] > 0 and n["mod_fac"] == 0 and n["fac"] == 0
+                          and n["mod_fac_shared"] == 0 for n in ln)
+                  and one["launches"]["fac_band"] == 0
+                  and [r["grid"] for r in ranks] == [[1, SP_BANDS, 0, j] for j in range(SP_BANDS)])
+            sp_ms = float(np.mean(rb[0]["ms"][1:]))
+            one_ms = float(np.mean(one["ms"][1:]))
+            log(f"check spatial 11 (b) {label}: {SP_STEPS} Adam steps (lr {DP_LR:g}) of the "
+                f"shipped model, batch {SP_BATCH} at {SP_HW}x{SP_HW}, on {SP_BANDS} gloo ranks of "
+                f"{SP_HW // SP_BANDS} rows each against the unsharded step on the card: losses "
+                f"{rb[0]['losses']} vs {one['losses']} (max rel {loss_rel:.1e}, tol "
+                f"{SP_LOSS_TOL[label]:.0e}); parameters max abs diff {diffs.max().item():.2e} "
+                f"(tol 2*lr*steps = {2 * DP_LR * SP_STEPS:.0e}; "
+                f"{(diffs > 1e-3 * DP_LR).float().mean().item():.2e} of them more than 1e-3*lr "
+                f"apart), ranks bitwise equal {same}; launches per rank {ln} (unsharded: "
+                f"{one['launches']}) {'ok' if ok else 'FAIL'}")
+            log(f"spatial 11 (b) {label}: {sp_ms:.1f} ms/iteration on {SP_BANDS} gloo ranks "
+                f"sharing the card (steps 2-{SP_STEPS}; halos and head gather through host "
+                f"copies), peak memory per rank "
+                f"{[round(r['peak_bytes'] / 2**20) for r in rb]} MiB; unsharded "
+                f"{one_ms:.1f} ms/iteration, peak {one['peak_bytes'] / 2**20:.0f} MiB; "
+                f"{card_identity()} (two ranks on one card: not a speed figure)")
+            if not ok:
+                raise AssertionError(f"spatial 11 (b) {label}: the spatial step disagrees")
+            runs[label] = {"ranks": ln, "unsharded": one["launches"], "ms": sp_ms,
+                           "unsharded_ms": one_ms,
+                           "peak_mib": [r["peak_bytes"] / 2**20 for r in rb],
+                           "unsharded_peak_mib": one["peak_bytes"] / 2**20}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+    return band, runs
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -2585,6 +2827,9 @@ def main() -> int:
     gen_launches = phase_generate(torch, kern)
     torch.cuda.empty_cache()
     serving = phase_serving_options(torch, kern)
+    torch.cuda.empty_cache()
+    band, spatial = phase_spatial(torch, kern)
+    sp_launches = {label: r["ranks"][0] for label, r in spatial.items()}  # rank 0's, per run
     kernels = []
     for name, r in results.items():
         kernels.append({
@@ -2600,7 +2845,21 @@ def main() -> int:
             "launches_export": serving["export"][name],
             "launches_norm": serving["norm"] if name == "B1_fac" else 0,
             "f32_route": r.get("f32_route"),
+            "launches_spatial": {label: n[KERNEL_COUNTER[name]]
+                                 for label, n in sp_launches.items()},
         })
+    b = band["float32"]
+    kernels.append({
+        "name": "B1_fac_band", "route": "cuda", "source": "ebfi_tpu_torch/csrc/fac.cu",
+        "replaces": "ebfi_tpu/ops/pallas/fac.py:31 _fac_kernel (a band of rows, spatial "
+                    "parallelism)",
+        "launches": sum(n["fac_band"] for n in sp_launches.values()),
+        "max_abs_err": b["max_abs_err"], "ms": b["ms"], "plain_ms": b["plain_ms"],
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
+        "dtype": "float32", "shape": b["shape"], "whole_image_ms": b["whole_image_ms"],
+        "whole_image_max_abs_diff": b["whole_image_max_abs_diff"], "bfloat16": band["bfloat16"],
+        "launches_spatial": {label: n["fac_band"] for label, n in sp_launches.items()},
+    })
     faulthandler.cancel_dump_traceback_later()
     print(identity, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

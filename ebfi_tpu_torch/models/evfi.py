@@ -8,6 +8,10 @@ trunk and ``from_timestamp`` the T-dependent tail; ``hoist`` and
 ``from_timestamp_shared`` share per-frame work across the N timestamps
 of one frame.  ``norm`` ("BN" or "IN") needs ``dual_path=False``, as in
 the JAX package.
+
+Under spatial parallelism (inside a band scope) ``forward`` takes the
+band of rows of this rank; the image's H must be a multiple of the band
+alignment (8) x the model axis, so no row padding is needed.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import dark_channel, laplacian_response, pad_amounts_to_multiple, pixel_shuffle
+from ..parallel import current_band
 from .control import ResidualControl
 from .exposure import ExposureDecision
 from .layers import ConvLayer
@@ -156,8 +161,13 @@ class EVFIAutoEx(nn.Module):
 
     def forward(self, frame, event, t, gt_ex=None):
         """frame (B, H, W, 3), event (B, H, W, 2*TB), t and gt_ex (B, 1) ->
-        (sharp, final), each (B, H, W, 3); pads to /8 and crops back."""
+        (sharp, final), each (B, H, W, 3); pads to /8 and crops back.  On a
+        band, H is the band's rows, and the image's must split into bands
+        of 8-row multiples (W is padded as without bands)."""
         B, H, W, _ = frame.shape
+        band = current_band()
+        if band is not None:
+            band.check_rows(H * band.model)
         pt, pb, pl, pr = pad_amounts_to_multiple(H, W, 8, 8)
         need_crop = pt or pb or pl or pr
         if need_crop:

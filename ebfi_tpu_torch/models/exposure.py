@@ -4,7 +4,9 @@
 Feature-extract the event stack and the blurriness map, GroupNorm both
 with ONE shared GroupNorm (as the reference does), correlate, channel
 attention from the pooled correlation, then a two-conv head pooled to one
-sigmoid scalar per sample.
+sigmoid scalar per sample.  On a band (spatial parallelism) the
+GroupNorm's statistics and the two means are the whole image's, so every
+rank of a model group computes the same ``ex``, bit for bit.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import ConvLayer, nchw, nhwc
+from ..parallel import band_mean
+from .layers import ConvLayer, group_norm_nhwc
 
 
 class ExposureDecision(nn.Module):
@@ -38,9 +41,9 @@ class ExposureDecision(nn.Module):
         """event (B, H, W, 2*TB), blurry_level (B, H, W, bl_in) -> (B, 1)."""
         event_feat = self.event_feat(event)
         bl_feat = self.bl_feat(blurry_level)
-        gn = lambda x: nhwc(self.group_norm(nchw(x)))
+        gn = lambda x: group_norm_nhwc(self.group_norm, x)
         corre = gn(event_feat) * gn(bl_feat)
-        atten = torch.sigmoid(corre.mean(dim=(1, 2), keepdim=True))  # (B, 1, 1, C)
+        atten = torch.sigmoid(band_mean(corre, (1, 2), keepdim=True))  # (B, 1, 1, C)
         h = self.head1(torch.cat([event_feat * atten, bl_feat], dim=-1))
         h = self.head2(h)
-        return torch.sigmoid(h.mean(dim=(1, 2)).reshape(-1, 1))
+        return torch.sigmoid(band_mean(h, (1, 2)).reshape(-1, 1))

@@ -13,6 +13,12 @@ fused=True takes the fused path only where those kernels take the call
 (leaky ReLU, no norm, frame features C1 wide, and on the card C1 = 64 and
 K <= 5), as the JAX package gates its Pallas kernels; otherwise it runs
 the unfused path, which takes any width and applies the norm to the bank.
+
+Under spatial parallelism (inside a band scope) the fused kernels do not
+take the call, as the JAX package's spatial step falls back from its
+Pallas kernel: the unfused path runs, its 3x3 convs with their halo rows,
+and FAC through B1's band mode on the event features with their 2 halo
+rows (the edge row replicated at the image's own top and bottom).
 """
 from __future__ import annotations
 
@@ -22,12 +28,22 @@ import torch
 import torch.nn as nn
 
 from ..ops import kernel_conv2d_auto
+from ..ops.cuda.fac import fac_band_cuda
 from ..ops.cuda.mod_fac import (
     cuda_kernel_takes,
     modification_fac_fused,
     modification_fac_fused_shared,
 )
+from ..parallel import current_band, halo_rows
 from .layers import ConvLayer, conv2d_nhwc
+
+
+def _fac(ev: torch.Tensor, bank: torch.Tensor, K: int) -> torch.Tensor:
+    """FAC through B1; on a band, through its band mode."""
+    if current_band() is None:
+        return kernel_conv2d_auto(ev, bank, K)
+    p = (K - 1) // 2
+    return fac_band_cuda(halo_rows(ev, 1, p, p, "replicate").contiguous(), bank, K)
 
 
 class Modification(nn.Module):
@@ -54,10 +70,12 @@ class Modification(nn.Module):
     def use_fused(self, frame_feat: torch.Tensor) -> bool:
         """Whether a call with these frame features runs the fused kernels.
         Hoist and tail decide alike: both see the frame features, and the
-        tail's event features share their dtype and device."""
+        tail's event features share their dtype and device.  Never on a
+        band (spatial parallelism)."""
         C1, K = self.frame_basech, self.kernel_size
         return (
             self.fused
+            and current_band() is None
             and self.fused_capable
             and frame_feat.shape[-1] == C1
             and cuda_kernel_takes(C1, K, frame_feat.dtype, frame_feat.device)
@@ -106,6 +124,6 @@ class Modification(nn.Module):
             e1 = modification_fac_fused(ev, frame_feat, wk, bk, K)
         else:
             kern = self.kernel_conv(torch.cat([ev, frame_feat], dim=-1))
-            e1 = kernel_conv2d_auto(ev, kern.contiguous(), K)
+            e1 = _fac(ev, kern.contiguous(), K)
         e1 = self.conv3(e1)
         return frame_feat * e1 + self.conv2(e1)

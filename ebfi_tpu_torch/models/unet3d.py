@@ -5,6 +5,12 @@ An R3D-18 encoder without batch norm and a transposed-conv decoder with
 squeeze-excite gates over the frame pair (T = 2).  The JAX package packs
 the two time steps into channels for the TPU; here they are the depth axis
 of native Conv3d/ConvTranspose3d on (B, C, T, H, W), the same math.
+Under spatial parallelism (inside a band scope) every conv takes its halo
+rows (the stem 3, the 3x3x3 convs 1, the transposed convs 1 input row
+each side, then a crop), the squeeze-excite means are the whole image's,
+and the output conv's reflect padding takes 3 halo rows, reflecting only
+at the image's own edges.  Band heights are multiples of 8, so that the
+three stride-2 levels keep every band on an even row.
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import SEGating, nhwc
+from .layers import SEGating, conv3d, conv_transpose3d, nhwc, reflect_conv2d
 
 
 class _BasicBlock3D(nn.Module):
@@ -29,8 +35,8 @@ class _BasicBlock3D(nn.Module):
         self.downsample = nn.Conv3d(in_ch, planes, 1, st, 0, bias=False) if downsample else None
 
     def forward(self, x):
-        out = self.fg(self.conv2(F.relu(self.conv1(x))))
-        res = self.downsample(x) if self.downsample is not None else x
+        out = self.fg(conv3d(self.conv2, F.relu(conv3d(self.conv1, x))))
+        res = conv3d(self.downsample, x) if self.downsample is not None else x
         return F.relu(out + res)
 
 
@@ -51,7 +57,7 @@ class _Encoder3D(nn.Module):
         self.layer4_1 = _BasicBlock3D(c3, c3)
 
     def forward(self, x):
-        x0 = F.relu(self.stem(x))
+        x0 = F.relu(conv3d(self.stem, x))
         x1 = self.layer1_1(self.layer1_0(x0))
         x2 = self.layer2_1(self.layer2_0(x1))
         x3 = self.layer3_1(self.layer3_0(x2))
@@ -68,7 +74,7 @@ class _ConvSE(nn.Module):
         self.fg = SEGating(out_ch)
 
     def forward(self, x):
-        return self.fg(self.conv(x))
+        return self.fg(conv3d(self.conv, x))
 
 
 class _UpConvSE(nn.Module):
@@ -80,7 +86,7 @@ class _UpConvSE(nn.Module):
         self.fg = SEGating(out_ch)
 
     def forward(self, x):
-        return self.fg(self.upconv(x))
+        return self.fg(conv_transpose3d(self.upconv, x))
 
 
 class UNet3d18(nn.Module):
@@ -109,4 +115,4 @@ class UNet3d18(nn.Module):
         dout = lrelu(self.dec4(d))
         # [t0 channels | t1 channels], the reference's unbind-then-concat
         fused = lrelu(self.feature_fuse(torch.cat(torch.unbind(dout, dim=2), dim=1)))
-        return nhwc(self.outconv(F.pad(fused, (3, 3, 3, 3), mode="reflect")))
+        return nhwc(reflect_conv2d(self.outconv, fused))

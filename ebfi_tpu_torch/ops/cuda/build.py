@@ -32,6 +32,7 @@ _I = ctypes.c_int
 # c_void_p, so 64-bit addresses are not cut to 32 bits)
 SIGNATURES = {
     "ebfi_fac_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ebfi_fac_band_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ebfi_mod_fac_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ebfi_mod_fac_shared": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "ebfi_mod_fac_fused_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

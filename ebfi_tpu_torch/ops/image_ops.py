@@ -2,7 +2,10 @@
 
 Port of ``ebfi_tpu/ops/image_ops.py``: the dark channel is a min-pool, the
 Laplacian reproduces cv2's fixed-point grayscale and 3x3 stencil in integer
-arithmetic, and pixel shuffle keeps torch's channel ordering.
+arithmetic, and pixel shuffle keeps torch's channel ordering.  Under
+spatial parallelism (inside a band scope) the dark channel takes 17 halo
+rows from the neighbouring bands and the Laplacian 1, each padding H only
+at the image's own edges.
 """
 from __future__ import annotations
 
@@ -11,6 +14,8 @@ from math import ceil, floor
 import torch
 import torch.nn.functional as F
 
+from ..parallel import current_band, halo_rows
+
 
 def dark_channel(frame: torch.Tensor, size: int = 35) -> torch.Tensor:
     """Channel-min then a ``size`` x ``size`` SAME min-pool that ignores
@@ -18,7 +23,10 @@ def dark_channel(frame: torch.Tensor, size: int = 35) -> torch.Tensor:
     dc = frame.amin(dim=-1)[:, None]  # (B, 1, H, W)
     lo = (size - 1) // 2
     hi = size - 1 - lo
-    padded = F.pad(-dc, (lo, hi, lo, hi), value=float("-inf"))
+    if current_band() is None:
+        padded = F.pad(-dc, (lo, hi, lo, hi), value=float("-inf"))
+    else:  # the window's rows past the band, +inf past the image
+        padded = F.pad(-halo_rows(dc, 2, lo, hi, float("inf")), (lo, hi), value=float("-inf"))
     return (-F.max_pool2d(padded, size, stride=1)).permute(0, 2, 3, 1)
 
 
@@ -29,11 +37,17 @@ def laplacian_response(frame: torch.Tensor) -> torch.Tensor:
     RGB data (so the R/B weights are swapped), then the 3x3 Laplacian with
     REFLECT_101 borders.  frame (B, H, W, 3) -> (B, H, W, 1) float32.
     """
+    band = current_band() is not None
+    if band:  # the rows above and below from the neighbours, reflected at the image's edges
+        frame = halo_rows(frame, 1, 1, 1, "reflect")
     u8 = torch.clamp(torch.floor(frame * 255.0), 0, 255).to(torch.int32)
     r, g, b = u8[..., 0], u8[..., 1], u8[..., 2]
     gray = (r * 3735 + g * 19235 + b * 9798 + (1 << 14)) >> 15  # (B, H, W)
-    # reflect-pad an integer map without a float round trip
-    gpad = torch.cat([gray[:, 1:2], gray, gray[:, -2:-1]], dim=1)
+    if band:
+        gray, gpad = gray[:, 1:-1], gray
+    else:
+        # reflect-pad an integer map without a float round trip
+        gpad = torch.cat([gray[:, 1:2], gray, gray[:, -2:-1]], dim=1)
     gpad = torch.cat([gpad[:, :, 1:2], gpad, gpad[:, :, -2:-1]], dim=2)
     lap = (
         gpad[:, :-2, 1:-1]

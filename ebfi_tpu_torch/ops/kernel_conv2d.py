@@ -53,13 +53,26 @@ def kernel_conv2d(
                              layout)
 
 
-def replicate_pad(x: torch.Tensor, p: int) -> torch.Tensor:
-    """x (B, H, W, C) replication-padded by p on H and W: the values of
-    ``F.pad(..., mode="replicate")``, built from edge slices, ``expand``
-    and ``cat``, whose backward sums in a fixed order.  (F.pad's backward
-    adds with atomics on the card, so a bf16 gradient through it changes
-    from run to run.)"""
-    for dim in (1, 2):
+def kernel_conv2d_band(
+    x_rows: torch.Tensor, kernel: torch.Tensor, kernel_size: int, layout: str = "tap_major"
+) -> torch.Tensor:
+    """FAC on a band of rows under spatial parallelism: x_rows
+    (B, H+K-1, W, C) carries its (K-1)/2 halo rows above and below in
+    place, so only W is replication-padded; kernel (B, H, W, C*K*K) ->
+    (B, H, W, C)."""
+    if kernel_size % 2 != 1:
+        raise ValueError("kernel_size must be odd")
+    return kernel_conv2d_raw(replicate_pad(x_rows, (kernel_size - 1) // 2, dims=(2,)), kernel,
+                             kernel_size, layout)
+
+
+def replicate_pad(x: torch.Tensor, p: int, dims=(1, 2)) -> torch.Tensor:
+    """x (B, H, W, C) replication-padded by p on ``dims`` (H and W): the
+    values of ``F.pad(..., mode="replicate")``, built from edge slices,
+    ``expand`` and ``cat``, whose backward sums in a fixed order.  (F.pad's
+    backward adds with atomics on the card, so a bf16 gradient through it
+    changes from run to run.)"""
+    for dim in dims:
         size = [-1] * 4
         size[dim] = p
         edge = lambda i: x.narrow(dim, i, 1).expand(size)

@@ -1,5 +1,7 @@
-"""Data parallelism of the port: one process per card, gradients averaged
-over the processes once per update (see :mod:`.dist`)."""
+"""Parallelism of the port: data parallelism, one process per card, with
+gradients averaged over the processes once per update (see :mod:`.dist`),
+and H-sharded spatial parallelism, DP x SP, with every row-coupled op on
+its band of rows (see :mod:`.spatial`)."""
 from .dist import (
     DISC_GRAD_RANGE,
     GRAD_RANGE,
@@ -11,6 +13,16 @@ from .dist import (
     local_device,
     local_shard_info,
     maybe_init_distributed,
+)
+from .spatial import (
+    BAND_ALIGN,
+    SpatialSpec,
+    band_mean,
+    band_scope,
+    current_band,
+    gather_rows,
+    halo_rows,
+    model_sum,
     spatial_shardings,
 )
 
@@ -26,4 +38,12 @@ __all__ = [
     "DISC_GRAD_RANGE",
     "broadcast_module_",
     "spatial_shardings",
+    "SpatialSpec",
+    "BAND_ALIGN",
+    "band_scope",
+    "current_band",
+    "halo_rows",
+    "model_sum",
+    "band_mean",
+    "gather_rows",
 ]

@@ -120,16 +120,19 @@ def _buckets(tensors: List[torch.Tensor], cap: int):
 
 
 @torch.no_grad()
-def all_reduce_mean_(tensors: Iterable[torch.Tensor], range_name: str = GRAD_RANGE) -> None:
+def all_reduce_mean_(tensors: Iterable[torch.Tensor], range_name: str = GRAD_RANGE,
+                     divisor: Optional[int] = None) -> None:
     """Replace each tensor by its mean over the ranks, in place.  Every rank
     passes the same tensors (shapes, dtypes) in the same order.  The
     tensors travel in flat buckets of at most BUCKET_BYTES (the model's
     22.8 MB of f32 gradients in one), summed by the backend and divided
-    by the world size, inside a ``record_function`` range ``range_name``.
+    by ``divisor`` (the world size for None; under spatial parallelism
+    the data axis, which sums over the model axis and averages over the
+    data axis), inside a ``record_function`` range ``range_name``.
     Without a process group nothing happens."""
     if not dist.is_initialized():
         return
-    world = dist.get_world_size()
+    world = dist.get_world_size() if divisor is None else divisor
     with torch.autograd.profiler.record_function(range_name):
         for bucket in _buckets(list(tensors), BUCKET_BYTES):
             flat = torch.cat([t.reshape(-1) for t in bucket])
@@ -140,30 +143,35 @@ def all_reduce_mean_(tensors: Iterable[torch.Tensor], range_name: str = GRAD_RAN
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """The sum over the ranks, which autograd differentiates: the gradient
-    of each rank's input is the sum over the ranks of their outputs'
-    gradients (the backward is this Function again, so that a double
-    backward goes through it too)."""
+    """The sum over the ranks of ``group`` (the world for None), which
+    autograd differentiates: the gradient of each rank's input is the sum
+    over the ranks of their outputs' gradients (the backward is this
+    Function again, so that a double backward goes through it too).  That
+    is the gradient of the sum of the ranks' losses: right where each
+    rank backpropagates its own share of the loss."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, grad):
-        return _AllReduceSum.apply(grad)
+        return _AllReduceSum.apply(grad, ctx.group), None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks, out of place and differentiable
-    (batch statistics over the global batch: the discriminators' BN).
-    Every rank calls it at the same point, forward and backward alike.
-    Without a process group it returns ``x``."""
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (the world for None), out
+    of place and differentiable (batch statistics over the global batch:
+    the discriminators' BN; under spatial parallelism, image statistics
+    over the model axis).  Every rank of the group calls it at the same
+    point, forward and backward alike.  Without a process group it
+    returns ``x``."""
     if not dist.is_initialized():
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, group)
 
 
 @torch.no_grad()
@@ -174,11 +182,3 @@ def broadcast_module_(module: torch.nn.Module, src: int = 0) -> None:
         return
     for t in list(module.parameters()) + list(module.buffers()):
         dist.broadcast(t.data, src)
-
-
-def spatial_shardings(*args, **kwargs):
-    """H-sharded spatial parallelism (``mesh.py::spatial_shardings``) has
-    no counterpart in the port yet."""
-    raise NotImplementedError(
-        "spatial (H-sharded) parallelism is not ported to ebfi_tpu_torch yet"
-    )

@@ -19,7 +19,10 @@ do there: the mean of ``accu_step`` micro-step gradients is applied every
 subtree (FrozenEX) is left out of the optimizer, so it gets no update and
 no moments.  Under data parallelism it also averages the gradients over
 the processes once per update, after accumulation (what XLA's all-reduce
-does inside the JAX package's jitted step).
+does inside the JAX package's jitted step); under spatial parallelism
+(D x S ranks) it sums them over the model axis, where each rank holds its
+band's share, and averages them over the data axis: one all-reduce over
+the world, divided by D.
 """
 from __future__ import annotations
 
@@ -126,14 +129,17 @@ class Updater:
     ``optax.MultiSteps`` does, and clears the gradients.  With
     ``data_parallel``, the gradients of every parameter it updates (zeros
     for one that got none, so that every rank reduces the same list) are
-    averaged over the processes right before the update."""
+    averaged over the processes right before the update.  With ``spatial``
+    (a :class:`~ebfi_tpu_torch.parallel.SpatialSpec`), they are summed over
+    the model axis and averaged over the data axis instead."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, factor: Callable[[int], float],
-                 accumulate_steps: int = 1, data_parallel: bool = False):
+                 accumulate_steps: int = 1, data_parallel: bool = False, spatial=None):
         self.optimizer = optimizer
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
         self.accumulate_steps = accumulate_steps
-        self.data_parallel = data_parallel
+        self.data_parallel = data_parallel or spatial is not None
+        self.spatial = spatial
         self.mini_step = 0
         self._acc: List[Optional[torch.Tensor]] = []
 
@@ -167,7 +173,8 @@ class Updater:
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            all_reduce_mean_([p.grad for p in params])
+            all_reduce_mean_([p.grad for p in params],
+                             divisor=None if self.spatial is None else self.spatial.data)
         self.optimizer.step()
         self.scheduler.step()
         self.optimizer.zero_grad(set_to_none=True)
@@ -197,12 +204,15 @@ def build_optimizer(
     accumulate_steps: int = 1,
     freeze_subtree: Optional[str] = None,
     data_parallel: bool = False,
+    spatial=None,
 ) -> Tuple[Updater, Callable[[int], float]]:
     """(updater, schedule) over ``model``'s parameters.  Supported names:
     Adam, AdamW, SGD, Adamax, RMSprop.  ``freeze_subtree``: the name of a
     submodule whose parameters receive no update (FrozenEX).
     ``data_parallel``: average the gradients over the process group at
-    every update."""
+    every update.  ``spatial``: the :class:`~ebfi_tpu_torch.parallel.SpatialSpec`
+    of a spatial train step (``make_train_step(spatial=...)``): sum the
+    gradients over its model axis and average them over its data axis."""
     args = optimizer_cfg.get("args") or {}
     base_lr = float(args.get("lr", 1e-4))
     if scheduler_cfg is not None:
@@ -212,5 +222,5 @@ def build_optimizer(
         factor = lambda step: 1.0  # noqa: E731
     opt = _torch_optimizer(optimizer_cfg["name"], trainable_params(model, freeze_subtree),
                            base_lr, args)
-    return (Updater(opt, factor, accumulate_steps, data_parallel),
+    return (Updater(opt, factor, accumulate_steps, data_parallel, spatial),
             (lambda step: base_lr * factor(step)))

@@ -39,8 +39,22 @@ parallelism its BN statistics and gradients are the global batch's
 ``train_loss``; the adversarial work runs inside a ``record_function``
 range ``ebfi::adversarial``.
 
-Not ported yet, and raising ``NotImplementedError``: H-sharded spatial
-parallelism.
+Spatial parallelism, DP x SP (``spatial=``, the
+:class:`~ebfi_tpu_torch.parallel.SpatialSpec` of
+``spatial_shardings(model_parallel)``): the ranks form a D x S grid, the
+model axis fastest.  Each rank is given its data shard's whole items, as
+under data parallelism; the step cuts its own band of H / S rows out of
+the frame and the events, runs the model on it inside a band scope (every
+row-coupled op takes its halo rows, every image statistic sums over the
+model axis; Modification runs unfused, as the JAX step falls back from
+its Pallas kernel), and gathers the two heads over the model axis, so
+every rank of a data shard computes the loss of its whole items.  The
+gather's backward hands each rank its band's rows of the gradient: the
+ranks' gradients sum over the model axis to the shard's, and the sum
+terms scale by D (not by D x S) so that the mean over the data axis is
+the global batch's.  The Updater, built with the same ``spatial``, sums
+over the model axis and averages over the data axis.  The adversarial
+and perceptual terms raise under ``spatial``: not ported.
 """
 from __future__ import annotations
 
@@ -53,6 +67,7 @@ from torch.func import functional_call
 
 from ..losses import (LPIPS, AdversarialLoss, AdvState, census_loss, charbonnier_loss,
                       laplacian_loss, load_lpips_params)
+from ..parallel import SpatialSpec, band_scope, gather_rows
 from .optim import Updater
 
 ADV_RANGE = "ebfi::adversarial"
@@ -87,16 +102,33 @@ def _apply_model(model: nn.Module, inputs: Tuple, compute_dtype=None):
     return functional_call(model, params, tuple(_cast(x, compute_dtype) for x in inputs))
 
 
+def _apply_on_band(model, inputs, compute_dtype, spec: SpatialSpec):
+    """(sharp, final) of the whole items, in f32: the model on this rank's
+    band of the frame and the events, the heads gathered over the model
+    axis."""
+    frame, event, t, gt_ex = inputs
+    r0, r1 = spec.band_rows(frame.shape[1])
+    with band_scope(spec):
+        sharp, final = _apply_model(model, (frame[:, r0:r1], event[:, r0:r1], t, gt_ex),
+                                    compute_dtype)
+    heads = gather_rows(torch.cat([sharp.float(), final.float()], dim=-1), spec)
+    return heads[..., :3], heads[..., 3:]
+
+
 def make_loss_fn(detail_enabled: bool, phase_switch_iter: int = 10_000, compute_dtype=None,
-                 world: int = 1):
+                 world: int = 1, spatial: Optional[SpatialSpec] = None):
     """loss_fn(model, batch, step) -> (loss, final): the loss of this rank's
-    batch (its sum terms scaled by ``world``) and the final head in f32."""
+    batch (its sum terms scaled by ``world``) and the final head in f32.
+    With ``spatial``, the model runs on this rank's band and the loss is
+    that of the whole items (see the module's docstring)."""
     def loss_fn(model, batch, step: int):
         target = batch["target"]
-        sharp, final = _apply_model(
-            model, (batch["frame"], batch["event"], batch["t"], batch.get("gt_ex")), compute_dtype
-        )
-        sharp, final = sharp.float(), final.float()
+        inputs = (batch["frame"], batch["event"], batch["t"], batch.get("gt_ex"))
+        if spatial is None:
+            sharp, final = _apply_model(model, inputs, compute_dtype)
+            sharp, final = sharp.float(), final.float()
+        else:
+            sharp, final = _apply_on_band(model, inputs, compute_dtype, spatial)
         if detail_enabled:
             early = step < phase_switch_iter
             w_final, w_pre = (0.1, 1.0) if early else (1.0, 0.1)
@@ -144,7 +176,7 @@ def make_train_step(
     detail_enabled: bool = True,
     phase_switch_iter: int = 10_000,
     compute_dtype=None,
-    spatial: bool = False,
+    spatial: Optional[SpatialSpec] = None,
     loss_cfg: Optional[dict] = None,
     world: int = 1,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
@@ -156,17 +188,36 @@ def make_train_step(
     or absent, target (B, H, W, 3), on the model's device: under data
     parallelism this rank's share of the global batch, ``world`` ranks in
     all.  The state (its model's parameters, updater and step count) is
-    updated in place and returned."""
-    if spatial:
-        raise NotImplementedError(
-            "spatial (H-sharded) parallelism is not ported to ebfi_tpu_torch yet"
-        )
-    loss_fn = make_loss_fn(detail_enabled, phase_switch_iter, compute_dtype, world)
+    updated in place and returned.
+
+    ``spatial``: None, or the spec of ``spatial_shardings(model_parallel)``
+    for DP x SP: the batch is then this rank's data shard, whole (every
+    rank of a model group is given the same items), H a multiple of 8 x
+    the model axis; the sum terms scale by the spec's data axis (``world``
+    must be 1 or that); the updater must be built with the same spec.  The
+    train_loss is the data shard's, the same on every rank of a model
+    group."""
+    if spatial is not None:
+        if not isinstance(spatial, SpatialSpec):
+            raise TypeError("spatial takes the SpatialSpec of "
+                            f"ebfi_tpu_torch.parallel.spatial_shardings(), got {spatial!r}")
+        for term in ("adversarial", "perceptual"):
+            if ((loss_cfg or {}).get(term) or {}).get("enabled", False):
+                raise NotImplementedError(
+                    f"the {term} term (trainer.loss.{term}) under spatial (H-sharded) "
+                    "parallelism is not ported to ebfi_tpu_torch")
+        if world not in (1, spatial.data):
+            raise ValueError(f"world={world}, but the spatial spec's data axis is {spatial.data}")
+        world = spatial.data
+    loss_fn = make_loss_fn(detail_enabled, phase_switch_iter, compute_dtype, world, spatial)
     lpips, w_lpips = build_lpips_term(loss_cfg)
     adv = build_adversarial(loss_cfg, world)
     w_adv = float(((loss_cfg or {}).get("adversarial") or {}).get("weight", 0.01))
 
     def step_fn(state: TrainState, batch):
+        if spatial is not None and state.updater.spatial is not spatial:
+            raise ValueError("a spatial train step needs the updater of "
+                             "build_optimizer(..., spatial=<the same spec>)")
         loss, final = loss_fn(state.model, batch, state.step)
         metrics = {}
         if lpips is not None:

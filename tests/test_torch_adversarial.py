@@ -32,6 +32,7 @@ from ebfi_tpu.losses.discriminator import build_discriminator as jax_build
 from ebfi_tpu_torch.losses import AdversarialLoss
 from ebfi_tpu_torch.losses.discriminator import build_discriminator, init_discriminator
 from ebfi_tpu_torch.models import discriminator_params_from_jax
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 B, S = 2, 32
 GAN_TYPES = ["GAN", "WGAN", "WGAN_GP", "T_WGAN_GP", "FI_GAN", "FI_Cond_GAN", "STGAN"]

@@ -38,6 +38,7 @@ from ebfi_tpu_torch.ops.cuda import (
     modification_fac_fused,
     modification_fac_fused_shared,
 )
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

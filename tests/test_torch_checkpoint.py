@@ -25,6 +25,7 @@ from test_torch_parity import CHANNELS, STEP, TB, C, make_state_dict
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from convert_torch_checkpoint import convert_evfi_state_dict  # noqa: E402
 from jax_ckpt_to_torch import convert  # noqa: E402
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 
 def orbax_checkpoint(directory, model_cfg, seed=0):

@@ -36,6 +36,7 @@ from test_torch_checkpoint import orbax_checkpoint
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from h5_to_npz import h5_to_npz  # noqa: E402
 from jax_ckpt_to_torch import convert  # noqa: E402
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 FLAGS = [
     "--scale", "1", "--ori_scale", "ori", "--time_bins", "4",

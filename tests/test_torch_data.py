@@ -25,6 +25,7 @@ from ebfi_tpu_torch.data.synth import write_clip_npz
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from h5_to_npz import h5_to_npz  # noqa: E402
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 CLIP = dict(num_frames=32, H=32, W=32, seed=9, real_exposure=(0.5, 0.05), down_scales=(2,))
 

@@ -23,6 +23,7 @@ from ebfi_tpu_torch.data.clip_dataset import (NpzClipDataset, NpzClipDatasetFast
 from ebfi_tpu_torch.data.dataloader import EBFIDataLoader
 from ebfi_tpu_torch.data.resize import resize_cubic
 from test_torch_data import _config, assert_items_equal, clip  # noqa: F401 (fixture)
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 AUGMENT = {"random_crop": {"enabled": True, "size": [16, 24]},
            "flip": {"enabled": True, "horizontal_prob": 0.5, "vertical_prob": 0.5},

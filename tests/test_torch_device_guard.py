@@ -17,6 +17,7 @@ import torch
 
 from ebfi_tpu_torch.ops.cuda import fac as fac_mod
 from ebfi_tpu_torch.ops.cuda import mod_fac as mod_fac_mod
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 K, C = 5, 64
 
@@ -78,6 +79,14 @@ def test_b1_launches_under_the_input_device(rec):
     fac_mod._launch(x, _t((1, 4, 5, K * K * C)), K)
     assert rec.entered == [x.device]
     assert rec.calls == [("ebfi_fac_forward", True)]
+
+
+def test_b1_band_mode_launches_under_the_input_device(rec):
+    x = _t((1, 4 + K - 1, 5, C))  # the band's rows with their halo
+    out = fac_mod._launch(x, _t((1, 4, 5, K * K * C)), K, band=True)
+    assert out.shape == (1, 4, 5, C) and fac_mod.fac_band_cuda.launches >= 1
+    assert rec.entered == [x.device]
+    assert rec.calls == [("ebfi_fac_band_forward", True)]
 
 
 PACKERS = {torch.bfloat16: "pack_bank_weight", torch.float32: "pack_bank_weight_tf32"}

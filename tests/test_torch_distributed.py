@@ -35,8 +35,10 @@ import torch
 
 from ebfi_tpu_torch.models import EVFIAutoEx, init_weights
 from ebfi_tpu_torch.parallel import dist as pdist
+from ebfi_tpu_torch.parallel import spatial as pspatial
 from ebfi_tpu_torch.train import (TrainState, build_adversarial, build_optimizer, init_adv_state,
                                   make_train_step)
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 LAUNCH_TIMEOUT_S = 120
@@ -206,8 +208,24 @@ def test_without_a_group_everything_is_one_process(monkeypatch):
     pdist.all_reduce_mean_([t])
     pdist.barrier()
     assert torch.equal(t, torch.arange(4.0))
-    with pytest.raises(NotImplementedError, match="spatial"):
-        pdist.spatial_shardings()
+    # spatial parallelism without a group: the grid of one process, one band
+    spec = pspatial.spatial_shardings(1)
+    assert (spec.data, spec.model, spec.model_group) == (1, 1, None)
+    with pytest.raises(ValueError, match="needs a process group"):
+        pspatial.spatial_shardings(2)
+    # with one: its model and data groups (1 x 1 here; the 1 x 2 and 2 x 2
+    # grids in test_torch_spatial.py)
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{_free_port()}",
+                                         rank=0, world_size=1)
+    try:
+        spec = pspatial.spatial_shardings(1)
+        assert spec.backend == "gloo" and (spec.data_index, spec.band_index) == (0, 0)
+        for group in (spec.model_group, spec.data_group):
+            assert torch.distributed.get_process_group_ranks(group) == [0]
+        with pytest.raises(ValueError, match="not divisible by model_parallel=2"):
+            pspatial.spatial_shardings(2)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_local_device_follows_the_launcher(monkeypatch):

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from ebfi_tpu.infer import InferenceEngine as JaxEngine
 from ebfi_tpu_torch.infer import InferenceEngine
 from test_torch_models import MODEL_ARGS, evfi_pair, make_inputs
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 RTOL, ATOL = 1e-4, 2e-5
 

@@ -12,6 +12,7 @@ import torch
 
 from ebfi_tpu.ops import event_encoding as jenc
 from ebfi_tpu_torch.ops import event_encoding as tenc
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 
 def make_events(rng, n=500, H=12, W=16):

@@ -25,6 +25,7 @@ from ebfi_tpu_torch.tools.export import export_engine, export_model
 from ebfi_tpu_torch.utils.checkpoint import save_checkpoint
 from test_infer_cli import MODEL_CFG
 from test_torch_checkpoint import orbax_checkpoint
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -41,6 +42,9 @@ def _r(g, *shape, scale=1.0):
 OPS = {
     "fac": lambda g: (torch.ops.ebfi.fac.default,
                       (_r(g, 1, 5, 6, C), _r(g, 1, 5, 6, K * K * C), K)),
+    # B1's band mode: x carries K - 1 halo rows more than the bank
+    "fac_band": lambda g: (torch.ops.ebfi.fac_band.default,
+                           (_r(g, 1, 5 + K - 1, 6, C), _r(g, 1, 5, 6, K * K * C), K)),
     "mod_fac": lambda g: (torch.ops.ebfi.mod_fac.default,
                           (_r(g, 1, 5, 6, C), _r(g, 1, 5, 6, C),
                            _r(g, 3, 3, 2 * C, K * K * C, scale=0.1), _r(g, K * K * C, scale=0.1),
@@ -105,7 +109,9 @@ def test_cli_export_loads_in_a_fresh_process_and_matches_engine_and_jax(tmp_path
     ckpt = str(tmp_path / "model.pt")
     convert(jax_ckpt, ckpt)
     pt2 = str(tmp_path / "model.pt2")
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    # the fresh processes sum with as many threads as this one (torch_threads), or the
+    # bit-for-bit comparison below would compare two summation orders
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS=str(torch.get_num_threads()))
     run = lambda *argv: subprocess.run(  # noqa: E731
         [sys.executable, *argv], cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
     proc = run("-m", "ebfi_tpu_torch.tools.export", "--checkpoint", ckpt, "--output", pt2,

@@ -27,6 +27,7 @@ from ebfi_tpu.ops import warp as jwarp
 from ebfi_tpu_torch.losses import BrightnessConstancy, EventWarping, averaged_iwe, deblur_events
 from ebfi_tpu_torch.losses import flow as tflow
 from ebfi_tpu_torch.ops import grid_sample, sobel_gradients
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 B, H, W, N = 2, 10, 14, 150
 RES = (H, W)

@@ -37,6 +37,7 @@ from ebfi_tpu_torch.utils.vis import encode_png, filter_rows, read_png
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import generate_dataset as jax_generate  # noqa: E402
 from h5_to_npz import h5_to_npz  # noqa: E402
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 
 def _npz(path):

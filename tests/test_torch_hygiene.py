@@ -11,6 +11,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "ebfi_tpu_torch"
@@ -57,6 +58,7 @@ def test_import_without_jax():
         "import ebfi_tpu_torch.train, ebfi_tpu_torch.train.cli, ebfi_tpu_torch.train.trainer\n"
         "import ebfi_tpu_torch.train.checkpoint, ebfi_tpu_torch.train.exposure_trainer\n"
         "import ebfi_tpu_torch.parallel, ebfi_tpu_torch.parallel.dist\n"
+        "import ebfi_tpu_torch.parallel.spatial\n"
         "import ebfi_tpu_torch.losses.lpips, ebfi_tpu_torch.train.__main__\n"
         "import ebfi_tpu_torch.models.superslomo, ebfi_tpu_torch.models.library\n"
         "import ebfi_tpu_torch.ops.dcn_v2, ebfi_tpu_torch.ops.dcn_modules\n"

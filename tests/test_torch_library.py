@@ -29,6 +29,7 @@ from ebfi_tpu_torch.models import params_from_jax
 from ebfi_tpu_torch.models.layers import ConvLayer
 from ebfi_tpu_torch.ops import dcn_modules as tdcn
 from ebfi_tpu_torch.ops.dcn_v2 import dcn_v2_conv
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 RTOL = 1e-5
 

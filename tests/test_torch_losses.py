@@ -11,6 +11,7 @@ import torch
 
 from ebfi_tpu import losses as jl
 from ebfi_tpu_torch import losses as tl
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 NAMES = ["laplacian_loss", "census_loss", "charbonnier_loss", "mse_loss", "l1_loss"]
 TOL = 1e-5

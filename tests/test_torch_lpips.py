@@ -22,6 +22,7 @@ from ebfi_tpu_torch.losses.lpips import ALEX_CONVS, ALEX_LAYER_IDS
 from ebfi_tpu_torch.models import lpips_params_from_jax
 from test_torch_cli import FLAGS, inputs  # noqa: F401  (inputs: the CLI tests' clips, checkpoints)
 from test_torch_train import _assert_params_close, _batches, _models, _port_params
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 HW = 96

@@ -50,6 +50,7 @@ from ebfi_tpu_torch.ops.cuda.mod_fac import (
 )
 
 import jax.numpy as jnp
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 C = 64
 RTOL, ATOL = 1e-4, 1e-4

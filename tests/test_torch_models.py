@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from ebfi_tpu import models as jm
 from ebfi_tpu_torch import models as tm
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 RTOL, ATOL = 1e-4, 2e-5
 C, TB, STEP = 8, 4, 2

@@ -22,6 +22,7 @@ import torch
 from ebfi_tpu import models as jm
 from ebfi_tpu_torch import models as tm
 from test_torch_models import CHANNELS, TB, J, T, close, make_inputs, random_params
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 C = 8
 ARGS = dict(frame_basech=C, event_basech=C, inter_ch=C, tb=TB, blurry_fashion="RGBLap",

@@ -18,6 +18,7 @@ from ebfi_tpu.ops.pallas import mod_fac as jmod_fac
 from ebfi_tpu_torch import ops
 from ebfi_tpu_torch.ops import cuda as kern
 from ebfi_tpu_torch.ops.cuda import _common, build
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 RTOL, ATOL = 1e-4, 2e-5
 
@@ -218,6 +219,37 @@ def test_kernel_channel_constraint_is_checked():
         _check_weights("k", C, K, torch.zeros(3, 3, C, K * K * C), torch.zeros(K * K * C))
 
 
+def test_fac_band_mode_is_fac_on_rows_with_their_halo():
+    """B1's band mode on a band whose 2 halo rows are the neighbours' rows
+    (or the replicated edge row at the image's edges) equals FAC on the
+    whole image's rows, forward and gradient; its CPU path is the plain
+    version and counts no launch; a bank without K - 1 rows fewer raises
+    where the launch would check it."""
+    from ebfi_tpu_torch.ops.cuda.fac import _check
+    from ebfi_tpu_torch.ops.kernel_conv2d import replicate_pad
+
+    g = torch.Generator().manual_seed(3)
+    K, C, n = 5, 4, 6
+    x = torch.randn(2, 3 * n, 7, C, generator=g, requires_grad=True)
+    bank = torch.randn(2, 3 * n, 7, K * K * C, generator=g, requires_grad=True)
+    r = torch.randn(2, 3 * n, 7, C, generator=g)
+    whole = kern.kernel_conv2d_cuda(x, bank, K)
+    gx, gb = torch.autograd.grad((whole * r).sum(), (x, bank))
+    kern.reset_launch_counts()
+    xp = replicate_pad(x, 2, dims=(1,))
+    bands = [kern.fac_band_cuda(xp[:, j * n:(j + 1) * n + K - 1], bank[:, j * n:(j + 1) * n], K)
+             for j in range(3)]
+    got = torch.cat(bands, dim=1)
+    assert kern.band_launch_counts() == {"fac_band": 0}
+    torch.testing.assert_close(got, whole, rtol=0, atol=0)
+    hx, hb = torch.autograd.grad((got * r).sum(), (x, bank))
+    torch.testing.assert_close(hx, gx, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(hb, gb, rtol=0, atol=0)
+    _check(xp[:, : n + K - 1], bank[:, :n], K, band=True)
+    with pytest.raises(ValueError, match="band mode"):
+        _check(xp[:, :n], bank[:, :n], K, band=True)
+
+
 def test_library_name_hashes_the_sources():
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path.name.startswith("libebfi_kernels_")
@@ -225,7 +257,7 @@ def test_library_name_hashes_the_sources():
     names = {p.name for p in build.CSRC_DIR.glob("*.cu")}
     assert names == {"fac.cu", "mod_fac.cu", "mod_fac_wgmma.cu"}
     assert set(build.SIGNATURES) == {
-        "ebfi_fac_forward", "ebfi_mod_fac_fused", "ebfi_mod_fac_shared",
+        "ebfi_fac_forward", "ebfi_fac_band_forward", "ebfi_mod_fac_fused", "ebfi_mod_fac_shared",
         "ebfi_mod_fac_fused_wgmma", "ebfi_mod_fac_shared_wgmma",
     }
 

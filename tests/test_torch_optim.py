@@ -21,6 +21,7 @@ import torch.nn as nn
 from ebfi_tpu.train.optim import build_lr_schedule as jax_schedule
 from ebfi_tpu.train.optim import build_optimizer as jax_build
 from ebfi_tpu_torch.train.optim import build_lr_schedule, build_optimizer
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 ATOL = 1e-6
 

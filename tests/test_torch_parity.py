@@ -20,6 +20,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from convert_torch_checkpoint import convert_evfi_state_dict
 
 from ebfi_tpu.models import EVFIAutoEx
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 C, TB, STEP = 8, 4, 2
 CHANNELS = (4, 6, 8, 12)

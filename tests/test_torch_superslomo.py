@@ -30,6 +30,7 @@ import torch
 from ebfi_tpu.models import superslomo as jss
 from ebfi_tpu_torch.models import superslomo_params_from_jax
 from ebfi_tpu_torch.models import superslomo as tss
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 FLOW_BIAS = np.array([3.5, -2.5, 1.5, -3.0], np.float32)  # |flow| ~ 3-4: 2-4 insertions
 

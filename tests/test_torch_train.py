@@ -34,8 +34,10 @@ from ebfi_tpu.train import make_train_step as jax_train_step
 from ebfi_tpu.train.exposure_step import make_exposure_eval_step as jax_ex_eval
 from ebfi_tpu.train.exposure_step import make_exposure_train_step as jax_ex_train
 from ebfi_tpu_torch.models import EVFIAutoEx, ExposureDecision, params_from_jax
+from ebfi_tpu_torch.parallel import spatial_shardings
 from ebfi_tpu_torch.train import TrainState, build_optimizer, make_eval_step, make_train_step
 from ebfi_tpu_torch.train.exposure_step import make_exposure_eval_step, make_exposure_train_step
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 ARGS = dict(frame_basech=8, event_basech=8, inter_ch=8, tb=4, step=2, channels=(4, 6, 8, 12),
             blurry_fashion="RGBLap", bl_in=4)
@@ -179,7 +181,13 @@ def test_exposure_step_matches_jax(fashion):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="spatial"):
+    # spatial parallelism is ported (test_torch_spatial.py); the adversarial
+    # and perceptual terms under it are not, and raise naming the feature
+    spec = spatial_shardings(1)
+    for term in ("adversarial", "perceptual"):
+        with pytest.raises(NotImplementedError, match=f"the {term} term .* spatial"):
+            make_train_step(spatial=spec, loss_cfg={term: {"enabled": True}})
+    with pytest.raises(TypeError, match="SpatialSpec"):
         make_train_step(spatial=True)
     # the adversarial and perceptual terms are ported (test_torch_adversarial.py and
     # test_torch_lpips.py hold them against JAX); the adversarial one needs its state

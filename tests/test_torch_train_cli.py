@@ -15,6 +15,7 @@ from ebfi_tpu_torch.train.checkpoint import restore_checkpoint
 from ebfi_tpu_torch.train.cli import main as train_main
 from ebfi_tpu_torch.utils.logger import dump_yaml
 from ebfi_tpu_torch.utils.yaml_lite import YamlLiteError, safe_load
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SMALL_MODEL = {"FrameBasech": 8, "EventBasech": 8, "InterCH": 8, "TB": 4, "step": 2,

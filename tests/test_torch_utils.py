@@ -23,6 +23,7 @@ from ebfi_tpu_torch.utils import flow_vis as tflow
 from ebfi_tpu_torch.utils.profiling import trace
 from ebfi_tpu_torch.utils.timers import _timers
 from ebfi_tpu_torch.utils.vis import read_png
+import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
 
 def test_the_utility_api_exports_what_jax_exports():
