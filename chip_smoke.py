@@ -40,6 +40,10 @@ seconds elapsed:
    with FrameBasech 8 in bf16 takes the unfused path (cuDNN bank conv and
    B1), card against CPU; (b) ``python -m ebfi_tpu_torch.infer`` in f32 on a
    64x96 clip, on the card and with ``--device cpu``, outputs compared;
+   (d) the loader's host plane on (a)'s clip: every item with the native
+   plane (C++, ``ebfi_tpu_torch/native``) and with the numpy plane, in
+   turns over three passes, bit for bit, and each plane's host ms per
+   blurry frame in each pass beside the CPU model;
 6. training on the card: (a) ``ebfi_tpu_torch.train.cli.main`` trains the
    shipped model (``configs/train_evfi.yml`` with ';' overrides: a
    synthetic clip, 20 iterations, checkpoints and validation every 10)
@@ -123,7 +127,18 @@ seconds elapsed:
    (1e-2 in bf16), parameters within 2 * lr per step (the ranks bitwise
    equal), B1's band mode launched on every step and B1, B3 and B2 never;
    ms per iteration and each rank's peak memory beside the unsharded
-   step's (two ranks sharing one card: not a speed figure).
+   step's (two ranks sharing one card: not a speed figure); then the same
+   with ``trainer.loss.adversarial`` (STGAN) and ``trainer.loss.perceptual``
+   (LPIPS, random AlexNet), f32 and bf16: each step's train_loss,
+   lpips_loss, g_loss and d_loss relative to the unsharded step's
+   (SP_TERM_TOL; step 1's d_loss, before any discriminator update,
+   SP_FIRST_STEP_TOL), the model's parameters and the discriminator's
+   (within 2 * lr per step, at most SP_DISC_SHARE of them more than
+   1e-3 * lr apart), and one profiled step's ``ebfi::adversarial`` range on rank 0
+   and unsharded; then f32 with both terms on four gloo ranks (2 x 2: two
+   data shards of 4 items, so the discriminator's BN statistics, its
+   gradients' mean and the shards' items span the data axis), the mean
+   of the ranks' metrics against the unsharded step's, as above.
 
 The line before the last is a JSON object with the kernels' numbers
 (``launches_train``: B1's launches in run (a), validation forwards
@@ -134,8 +149,8 @@ generator run, 0: no FAC kernel is on that path; ``launches_export``: the
 kernel's launches by phase 10 (a)'s exported programs; ``launches_norm``:
 B1's in phase 10 (b), 0 for the others; ``f32_route``: B2, B2p and
 B3's f32 numbers from phase 3, with their launches in phase 4 (d);
-``launches_spatial``: each kernel's launches on rank 0 in phase 11 (b)'s
-f32 and bf16 runs; the row ``B1_fac_band``: B1's band mode, phase 11 (a)'s
+``launches_spatial``: each kernel's launches on rank 0 in each of phase
+11 (b)'s runs; the row ``B1_fac_band``: B1's band mode, phase 11 (a)'s
 f32 numbers, its launches those of phase 11 (b)); the last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises and
 the run exits non-zero; without a CUDA card it exits 2 and prints no
@@ -217,20 +232,19 @@ def kernel_cases(torch, kern):
     """name -> the TPU kernel it replaces, its source, wrapper and plain
     version, an input maker, and the (B, N) of the check and of the
     serving path."""
-    rng = np.random.default_rng(SEED)
+    # drawn on the card: B1's bank at the serving shape is 1.5e9 values,
+    # which numpy takes tens of seconds to draw on the host
+    gen = torch.Generator("cuda").manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
 
     def fac_args(B, h, w, dt, n=1):
-        x = rng.standard_normal((B, h, w, C), dtype=np.float32)
-        bank = rng.standard_normal((B, h, w, K * K * C), dtype=np.float32)
-        return [torch.from_numpy(a).to("cuda", dt) for a in (x, bank)] + [K]
+        return [randn(B, h, w, C).to(dt), randn(B, h, w, K * K * C).to(dt), K]
 
     def mod_args(B, h, w, dt, n=1):
-        ev = rng.standard_normal((B * n, h, w, C), dtype=np.float32)
-        ff = rng.standard_normal((B, h, w, C), dtype=np.float32)
-        wk = 0.05 * rng.standard_normal((3, 3, 2 * C, K * K * C), dtype=np.float32)
-        bk = 0.1 * rng.standard_normal((K * K * C,), dtype=np.float32)
-        t = [torch.from_numpy(a).to("cuda", dt) for a in (ev, ff, wk)]
-        return t + [torch.from_numpy(bk).cuda(), K]
+        t = [randn(B * n, h, w, C), randn(B, h, w, C), randn(3, 3, 2 * C, K * K * C, scale=0.05)]
+        return [a.to(dt) for a in t] + [randn(K * K * C, scale=0.1), K]
 
     return {
         "B1_fac": dict(
@@ -709,6 +723,102 @@ def read_means(path):
     return means
 
 
+@functools.cache
+def host_cpu() -> str:
+    """The host's CPU model, written beside every host time: /proc/cpuinfo's
+    ``model name``, else ``lscpu``'s, else the vendor, family and model
+    numbers; with the machine type and the CPUs this process may use."""
+    import platform
+
+    def known(v):
+        return v if v and v.lower() not in ("unknown", "-") else None
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            fields = {k.strip(): v.strip() for k, v in
+                      (ln.split(":", 1) for ln in f if ":" in ln)}
+    except OSError:
+        pass
+    model = known(fields.get("model name"))
+    if model is None and shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        model = known(next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                            if ln.startswith("Model name")), None))
+    if model is None:
+        model = (f"model name not reported; {fields.get('vendor_id', '?')} family "
+                 f"{fields.get('cpu family', '?')} model {fields.get('model', '?')}")
+    return f"{model} ({platform.machine()}), {len(os.sched_getaffinity(0))} CPUs"
+
+
+HOST_PLANE_PASSES = 3  # 5 (d): passes over the clip, the planes in turn within each
+
+
+def host_plane(clip, dataset_cfg):
+    """5 (d): every window of the CLI's clip through the loader with the
+    native host plane and with the numpy plane (the dataset module's
+    ``native`` swapped for :mod:`ebfi_tpu_torch.data.encodings`), in turns
+    over HOST_PLANE_PASSES passes (native, numpy, native, ...): every
+    pass's items bit for bit equal to the first native pass's, and each
+    plane's host ms per blurry frame in each pass, the whole fetch and its
+    stacks, blurs and timestamp normalisation."""
+    import types
+
+    from ebfi_tpu_torch import native
+    from ebfi_tpu_torch.data import clip_dataset, encodings
+
+    planes = {"native": native, "numpy": types.SimpleNamespace(
+        events_to_stack=lambda *a: encodings.item_layout(encodings.events_to_stack(*a)),
+        blurry_mean=encodings.blurry_mean,
+        normalize_ts=encodings.normalize_event_ts)}
+    native.load_library()  # the build is not a fetch
+    passes, ms = [], {name: [] for name in planes}
+    try:
+        for _ in range(HOST_PLANE_PASSES):
+            for name, plane in planes.items():
+                spent = {"events_to_stack": 0.0, "blurry_mean": 0.0, "normalize_ts": 0.0}
+
+                def timed(fn_name, fn, spent=spent):
+                    def call(*a, **k):
+                        t0 = time.perf_counter()
+                        try:
+                            return fn(*a, **k)
+                        finally:
+                            spent[fn_name] += 1e3 * (time.perf_counter() - t0)
+                    return call
+
+                clip_dataset.native = types.SimpleNamespace(
+                    **{k: timed(k, getattr(plane, k)) for k in spent})
+                ds = clip_dataset.NpzClipDataset(clip, dataset_cfg)
+                t0 = time.perf_counter()
+                items = [ds.get(i, seed=SEED + i) for i in range(len(ds))]
+                wall = 1e3 * (time.perf_counter() - t0)
+                n_blurry = sum(int(np.prod(it["blurry"].shape[:2])) for it in items)
+                ms[name].append({"fetch": wall / n_blurry,
+                                 **{k: v / n_blurry for k, v in spent.items()}})
+                passes.append(items)
+    finally:
+        clip_dataset.native = native
+    same = all(len(p) == len(passes[0]) and all(a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and np.array_equal(np.ascontiguousarray(a[k]).view(np.uint8),
+                           np.ascontiguousarray(b[k]).view(np.uint8)) for k in a)
+        for a, b in zip(passes[0], p)) for p in passes[1:])
+    ok = same and len(passes[0]) > 0
+    log(f"check cli (d) host plane: {len(passes[0])} items ({n_blurry} blurry frames) of "
+        f"the {CLIP_FRAMES}-frame {H}x{W} clip, {HOST_PLANE_PASSES} passes of each plane in "
+        f"turns, every pass bit for bit equal to the first native one {'ok' if ok else 'FAIL'}")
+    for name, runs in ms.items():
+        log(f"cli (d) host plane {name}, ms per blurry frame in each pass: whole fetch "
+            + ", ".join(f"{m['fetch']:.1f}" for m in runs) + "; event stacks "
+            + ", ".join(f"{m['events_to_stack']:.1f}" for m in runs) + "; blur synthesis "
+            + ", ".join(f"{m['blurry_mean']:.1f}" for m in runs) + "; timestamp normalisation "
+            + ", ".join(f"{m['normalize_ts']:.1f}" for m in runs) + f"; host {host_cpu()}")
+    if not ok:
+        raise AssertionError("cli (d): the native host plane differs from the numpy plane")
+    return ms
+
+
 def phase_cli(torch, kern):
     from ebfi_tpu_torch.data.dataloader import EBFIDataLoader
     from ebfi_tpu_torch.data.synth import write_clip_npz
@@ -740,6 +850,7 @@ def phase_cli(torch, kern):
             f"wall, {len(frames) / wall:.2f} restored frames/s end to end; launches {counts}; "
             f"routes {routes}; max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; means {means}")
+        log(f"  host: {host_cpu()}; the fetch runs the native host plane")
         for i, st in enumerate(stats):
             log(f"  blurry frame {i}: host fetch {st['fetch_ms']:.1f} ms, device "
                 f"{st['device_ms']:.1f} ms, host waiting for the result {st['sync_ms']:.1f} ms, "
@@ -785,6 +896,7 @@ def phase_cli(torch, kern):
             raise AssertionError("cli (a): the CLI's frames differ from the engine's")
         del engine, window
         shutil.rmtree(out)
+        host_plane(clip, cfg["dataset"])
         os.remove(clip)
         torch.cuda.empty_cache()
 
@@ -2545,8 +2657,31 @@ def phase_serving_options(torch, kern):
 SP_BATCH, SP_HW, SP_STEPS = 8, 128, 3  # (b): the shipped batch and crops, Adam steps
 SP_BANDS = 2
 SP_LOSS_TOL = {"f32": 1e-5, "bf16": 1e-2}  # as tests/test_torch_distributed.py holds DP
-SP_CASES = [["f32", MODEL_CFG, False],
-            ["bf16", {**MODEL_CFG, "args": {**MODEL_CFG["args"], "FastVariants": True}}, True]]
+SP_TERMS = {"adversarial": ADV_LOSS, "perceptual": {"enabled": True, "weight": 0.1}}
+SP_FAST_CFG = {**MODEL_CFG, "args": {**MODEL_CFG["args"], "FastVariants": True}}
+SP_CASES = [["f32", MODEL_CFG, False, None], ["bf16", SP_FAST_CFG, True, None],
+            ["f32_stgan_lpips", MODEL_CFG, False, SP_TERMS],
+            ["bf16_stgan_lpips", SP_FAST_CFG, True, SP_TERMS]]
+SP_GRIDS = {1: [c[0] for c in SP_CASES], 2: ["f32_stgan_lpips"]}  # data axis D -> cases
+# each step's |spatial - unsharded| / |unsharded|, the spatial value the
+# mean over the ranks.  With the terms, g_loss and d_loss follow Adamax
+# updates, which move every parameter by about lr whatever its gradient's
+# size, so a gradient within the card's noise of 0 (cuDNN's weight
+# gradients add with atomics, differently in each process) moves it the
+# other way, and d_loss falls to about 4e-4 by step 3: sound f32 runs read
+# up to 2.3e-3 on d_loss and 7.0e-4 on g_loss, bf16 ones 1.04e-2 and
+# 1.2e-3 (PERF.md, §6).  Step 1's d_loss comes before the
+# discriminator's first update, the forward alone (sound runs: at most
+# 1.8e-7 in f32, 0 in bf16), and is held to SP_FIRST_STEP_TOL
+SP_TERM_TOL = {"f32": {"train_loss": 1e-5, "lpips_loss": 1e-5, "g_loss": 5e-3, "d_loss": 1e-2},
+               "bf16": {"train_loss": 1e-2, "lpips_loss": 1e-3, "g_loss": 1e-2, "d_loss": 5e-2}}
+SP_FIRST_STEP_TOL = {"f32": {"d_loss": 1e-5}, "bf16": {"d_loss": 1e-4}}
+# the share of the discriminator's parameters more than 1e-3 * lr from the
+# unsharded step's (Adamax, lr 1e-3: a parameter whose update took the
+# other sign is up to 2 * lr per step apart; sound runs: at most 1.0e-2 in
+# f32, 4.1e-2 in bf16)
+SP_DISC_SHARE = {"f32": 5e-2, "bf16": 2e-1}
+SP_RANGES = ("ebfi::adversarial",)
 
 
 def band_parts(torch, x, bank, bands):
@@ -2578,14 +2713,15 @@ def phase_fac_band(torch, kern):
     against the plain version in f32 on the same inputs (TOL_REL) and
     against whole-image B1's rows; then timed over every band beside
     whole-image B1 on the same image (CUDA events)."""
-    rng = np.random.default_rng(SEED + 11)
+    # drawn on the card: the bank is 1.5e9 values, which numpy takes tens
+    # of seconds to draw on the host
+    gen = torch.Generator("cuda").manual_seed(SEED + 11)
     B, hm, wm = 4, H // 2, W // 2
     out = {}
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
-        x = torch.from_numpy(rng.standard_normal((B, hm, wm, C), dtype=np.float32)).to("cuda", dt)
-        bank = torch.from_numpy(rng.standard_normal((B, hm, wm, K * K * C), dtype=np.float32)
-                                ).to("cuda", dt)
+        x = torch.randn((B, hm, wm, C), generator=gen, device="cuda").to(dt)
+        bank = torch.randn((B, hm, wm, K * K * C), generator=gen, device="cuda").to(dt)
         parts = band_parts(torch, x, bank, SP_BANDS)
         n = hm // SP_BANDS
         err, tol, whole_diff = 0.0, 0.0, 0.0
@@ -2640,44 +2776,65 @@ def spatial_batches(path):
     return arrays
 
 
-def spatial_steps(torch, kern, device, sync, batches, cfg, bf16, spec=None):
-    """SP_STEPS Adam steps of ``cfg`` from the seed's training init on the
-    whole batches (D = 1), through the spatial step with ``spec``, or the
-    unsharded step without one: losses, ms per step (host clock around
-    synchronised steps), peak memory, launches, and the trained state."""
+def spatial_steps(torch, kern, device, sync, batches, cfg, bf16, spec=None, loss_cfg=None):
+    """SP_STEPS Adam steps of ``cfg`` from the seed's training init,
+    through the spatial step with ``spec`` on its data shard of the
+    batches, or the unsharded step on the whole batches without one, with
+    the terms of ``loss_cfg`` (the
+    discriminator from the CLI's seed): losses (and the terms' metrics),
+    ms per step (host clock around synchronised steps), peak memory,
+    launches, and the trained parameters.  With the terms on the card, one
+    more step under the profiler gives SP_RANGES' device spans (unsharded
+    and on a 1 x S grid)."""
     from ebfi_tpu_torch.models import build_model, init_weights
     from ebfi_tpu_torch.parallel import broadcast_module_
-    from ebfi_tpu_torch.train import TrainState, build_optimizer, make_train_step
+    from ebfi_tpu_torch.train import TrainState, build_adversarial, build_optimizer, make_train_step
 
     model = init_weights(build_model(cfg), SEED, scheme="train").to(device)
     if spec is not None:
         broadcast_module_(model)
     updater, _ = build_optimizer(model, {"name": "Adam", "args": {"lr": DP_LR}}, spatial=spec)
-    step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None, spatial=spec)
-    state, losses, ms = TrainState(model, updater), [], []
+    step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None, spatial=spec,
+                           loss_cfg=loss_cfg)
+    state, metrics, ms = TrainState(model, updater), {}, []
+    if loss_cfg:
+        axis = (1,) if spec is None else (spec.data, spec.data_index, spec.data_group)
+        state.adv_state = adv_state(build_adversarial(loss_cfg, *axis), device,
+                                    batches["frame_0"].shape[1:3])
     sync()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     kern.reset_launch_counts()
+    n = SP_BATCH // (1 if spec is None else spec.data)
+    d = 0 if spec is None else spec.data_index
     for i in range(SP_STEPS):
-        b = {k: torch.from_numpy(batches[f"{k}_{i}"]).to(device)
+        b = {k: torch.from_numpy(batches[f"{k}_{i}"][d * n:(d + 1) * n]).to(device)
              for k in ("frame", "event", "t", "target")}
         sync()
         t0 = time.perf_counter()
         state, m = step(state, b)
-        losses.append(float(m["train_loss"]))
+        for k, v in m.items():
+            metrics.setdefault(k, []).append(float(v))
         sync()
         ms.append(1e3 * (time.perf_counter() - t0))
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-    return {"losses": losses, "ms": ms, "peak_bytes": peak,
-            "launches": {**kern.launch_counts(), **kern.band_launch_counts()},
-            "routes": kern.route_counts()}, state
+    out = {"losses": metrics.pop("train_loss"), "metrics": metrics, "ms": ms, "peak_bytes": peak,
+           "launches": {**kern.launch_counts(), **kern.band_launch_counts()},
+           "routes": kern.route_counts()}
+    trained = trained_params(state)
+    # not on 2 x 2: four processes sharing the card under the profiler read
+    # device spans longer than the step's wall (25 s against 2 s)
+    if loss_cfg and device.type == "cuda" and (spec is None or spec.data == 1):
+        where = "unsharded" if spec is None else f"rank {spec.band_index}"
+        out["ranges"] = breakdown(torch, f"spatial 11 (b) {where}, one step with the terms",
+                                  lambda: step(state, b), top=5, ranges=SP_RANGES)
+    return out, trained
 
 
 def spatial_worker(torch, kern, spec, device, sync):
-    """11 (b) on one rank: the grid of ``spatial_check``'s model_parallel,
-    then each case's steps; the trained parameters saved beside the
-    spec's ``out``."""
+    """11 (b) on one rank: the grid of ``spatial_check``'s model_parallel
+    over the launch's ranks, then each case's steps; the trained
+    parameters saved beside the spec's ``out``."""
     from ebfi_tpu_torch.parallel import local_shard_info, spatial_shardings
 
     sc = spec["spatial_check"]
@@ -2685,75 +2842,125 @@ def spatial_worker(torch, kern, spec, device, sync):
     batches = dict(np.load(sc["batches"]))
     sp = spatial_shardings(sc["model_parallel"])
     res = {"grid": [sp.data, sp.model, sp.data_index, sp.band_index]}
-    for label, cfg, bf16 in sc["cases"]:
-        r, state = spatial_steps(torch, kern, device, sync, batches, cfg, bf16, sp)
+    for label, cfg, bf16, loss_cfg in sc["cases"]:
+        r, trained = spatial_steps(torch, kern, device, sync, batches, cfg, bf16, sp, loss_cfg)
         res["sp_" + label] = r
-        torch.save(trained_params(state), spec["out"] % rank + f".sp_{label}.pt")
-        del state
+        torch.save(trained, spec["out"] % rank + f".sp_{label}.pt")
+        del trained
+        torch.cuda.empty_cache()
     return res
+
+
+def check_spatial_case(torch, spec, ranks, case, one, want):
+    """One case of 11 (b): the ranks' results (``ranks``, read from
+    ``spec``'s files) against the unsharded step's (``one``, its trained
+    parameters ``want``).  Every rank's metrics are its data shard's, so
+    their mean over the ranks is the whole batch's.  Logs the comparison
+    and the run's ms and memory, raises on a disagreement, and returns the
+    run's launches, ms and peak memory."""
+    label, _, bf16, loss_cfg = case
+    nproc = len(ranks)
+    S = SP_BANDS
+    grid = f"{nproc // S} x {S}"
+    got = [torch.load(rank_file(spec, r) + f".sp_{label}.pt", weights_only=True)
+           for r in range(nproc)]
+    same = all(torch.equal(got[0][k], g[k]) for g in got[1:] for k in want)
+    keys = {"model": [k for k in want if not k.startswith("disc.")],
+            "disc": [k for k in want if k.startswith("disc.")]}
+    diffs = {part: torch.cat([(got[0][k] - want[k]).abs().flatten() for k in ks])
+             for part, ks in keys.items() if ks}
+    lr = {"model": DP_LR, "disc": 1e-3}  # Adam; the discriminator's Adamax
+    share = {part: (d > 1e-3 * lr[part]).float().mean().item() for part, d in diffs.items()}
+    dname = "bf16" if bf16 else "f32"
+    params_ok = (all(d.max().item() <= 2 * lr[part] * SP_STEPS * 1.001
+                     for part, d in diffs.items())
+                 and share.get("disc", 0.0) <= SP_DISC_SHARE[dname])
+    rb = [r["sp_" + label] for r in ranks]
+    tol = SP_TERM_TOL[dname] if loss_cfg else {"train_loss": SP_LOSS_TOL[dname]}
+    series = {"train_loss": (np.mean([r["losses"] for r in rb], axis=0), one["losses"]),
+              **{k: (np.mean([r["metrics"][k] for r in rb], axis=0), one["metrics"][k])
+                 for k in one["metrics"]}}
+    rel = {k: np.abs(a - np.array(b)) / np.abs(b) for k, (a, b) in series.items()}
+    limit = {k: [SP_FIRST_STEP_TOL[dname].get(k, t)] + [t] * (SP_STEPS - 1)
+             for k, t in tol.items()}
+    ln = [r["launches"] for r in rb]
+    group = [[d * S + m for m in range(S)] for d in range(nproc // S)]
+    ok = (same and params_ok and set(rel) == set(tol)
+          and all((rel[k] <= limit[k]).all() for k in tol)
+          and all(rb[r]["losses"] == rb[g[0]]["losses"] and rb[r]["metrics"] == rb[g[0]]["metrics"]
+                  for g in group for r in g)
+          and all(n["fac_band"] > 0 and n["mod_fac"] == 0 and n["fac"] == 0
+                  and n["mod_fac_shared"] == 0 for n in ln)
+          and one["launches"]["fac_band"] == 0
+          and [r["grid"] for r in ranks] == [[nproc // S, S, *divmod(r, S)] for r in range(nproc)])
+    sp_ms = float(np.mean(rb[0]["ms"][1:]))
+    one_ms = float(np.mean(one["ms"][1:]))
+    terms = f" with {sorted(loss_cfg)}" if loss_cfg else ""
+    log(f"check spatial 11 (b) {label} on {grid}: {SP_STEPS} Adam steps (lr {DP_LR:g}) of the "
+        f"shipped model{terms}, batch {SP_BATCH} at {SP_HW}x{SP_HW}, on {nproc} gloo ranks "
+        f"({nproc // S} data shards of {SP_BATCH * S // nproc} items, {S} bands of "
+        f"{SP_HW // S} rows) against the unsharded step on the card: "
+        + "; ".join(f"{k} {[float(x) for x in a]} vs {b} (each step's relative difference "
+                    f"{[float(f'{x:.2e}') for x in rel[k]]}, tol {limit[k]})"
+                    for k, (a, b) in series.items())
+        + "; parameters max abs diff " + ", ".join(
+            f"{part} {d.max().item():.2e} (tol 2*lr*steps = {2 * lr[part] * SP_STEPS:.0e}; "
+            f"{share[part]:.2e} of them more than 1e-3*lr apart"
+            + (f", tol {SP_DISC_SHARE[dname]:.0e}" if part == "disc" else "") + ")"
+            for part, d in diffs.items())
+        + f", ranks bitwise equal {same}; launches per rank {ln} (unsharded: "
+        f"{one['launches']}) {'ok' if ok else 'FAIL'}")
+    log(f"spatial 11 (b) {label} on {grid}: {sp_ms:.1f} ms/iteration on {nproc} gloo ranks "
+        f"sharing the card (steps 2-{SP_STEPS}; halos and head gather through host "
+        f"copies), peak memory per rank "
+        f"{[round(r['peak_bytes'] / 2**20) for r in rb]} MiB; unsharded "
+        f"{one_ms:.1f} ms/iteration, peak {one['peak_bytes'] / 2**20:.0f} MiB; "
+        f"{card_identity()} ({nproc} ranks on one card: not a speed figure)")
+    if loss_cfg and "ranges" in rb[0]:
+        spans = {w: r.get("ranges", {}).get(SP_RANGES[0]) for w, r in
+                 (("rank 0", rb[0]), ("unsharded", one))}
+        log(f"spatial 11 (b) {label} on {grid}: {SP_RANGES[0]} per step, " + "; ".join(
+            f"{w}: {'not recorded' if sp is None else _range_text(sp)}"
+            for w, sp in spans.items()) + f"; {card_identity()}")
+    if not ok:
+        raise AssertionError(f"spatial 11 (b) {label} on {grid}: the spatial step disagrees")
+    return {"ranks": ln, "unsharded": one["launches"], "ms": sp_ms, "unsharded_ms": one_ms,
+            "peak_mib": [r["peak_bytes"] / 2**20 for r in rb],
+            "unsharded_peak_mib": one["peak_bytes"] / 2**20}
 
 
 def phase_spatial(torch, kern):
     """Phase 11: B1's band mode (a), then (b) the spatial step of the
-    shipped model on SP_BANDS gloo ranks on the one card (NCCL refuses two
-    ranks on one device; the halos travel through host copies) against
-    the unsharded step in this process.  Returns the band row's numbers
-    and the launches of each run."""
+    shipped model on gloo ranks on the one card (NCCL refuses two ranks on
+    one device; the halos travel through host copies) against the
+    unsharded step in this process: each grid of SP_GRIDS (1 x SP_BANDS,
+    then 2 x SP_BANDS, where the discriminator's BN statistics and the
+    data shards span two ranks) with its cases.  Returns the band row's
+    numbers and the launches of each run (the 2 x 2 ones labelled so)."""
     t0 = time.perf_counter()
     band = phase_fac_band(torch, kern)
     tmp = tempfile.mkdtemp(prefix="ebfi_chip_sp_")
-    runs = {}
+    runs, unsharded = {}, {}
     try:
         batches = spatial_batches(os.path.join(tmp, "batches.npz"))
-        spec = dp_spec(tmp, "sp", backend="gloo", device="cuda:0", spatial_check={
-            "batches": os.path.join(tmp, "batches.npz"), "model_parallel": SP_BANDS,
-            "cases": SP_CASES})
-        launch_ranks(f"spatial 11 (b) gloo, {SP_BANDS} ranks (1 x {SP_BANDS}) on one card",
-                     SP_BANDS, ["chip_smoke.py", "--dp-worker", spec])
-        ranks = read_ranks(spec, SP_BANDS)
-        for label, cfg, bf16 in SP_CASES:
-            one, state = spatial_steps(torch, kern, torch.device("cuda"), torch.cuda.synchronize,
-                                       batches, cfg, bf16)
-            want = trained_params(state)
-            del state
-            got = [torch.load(rank_file(spec, r) + f".sp_{label}.pt", weights_only=True)
-                   for r in range(SP_BANDS)]
-            same = all(torch.equal(got[0][k], g[k]) for g in got[1:] for k in want)
-            diffs = torch.cat([(got[0][k] - want[k]).abs().flatten() for k in want])
-            bound = 2 * DP_LR * SP_STEPS * 1.001
-            rb = [r["sp_" + label] for r in ranks]
-            loss_rel = float(np.max(np.abs(np.array(rb[0]["losses"]) - one["losses"])
-                                    / np.abs(one["losses"])))
-            ln = [r["launches"] for r in rb]
-            ok = (same and diffs.max().item() <= bound and loss_rel <= SP_LOSS_TOL[label]
-                  and all(r["losses"] == rb[0]["losses"] for r in rb)
-                  and all(n["fac_band"] > 0 and n["mod_fac"] == 0 and n["fac"] == 0
-                          and n["mod_fac_shared"] == 0 for n in ln)
-                  and one["launches"]["fac_band"] == 0
-                  and [r["grid"] for r in ranks] == [[1, SP_BANDS, 0, j] for j in range(SP_BANDS)])
-            sp_ms = float(np.mean(rb[0]["ms"][1:]))
-            one_ms = float(np.mean(one["ms"][1:]))
-            log(f"check spatial 11 (b) {label}: {SP_STEPS} Adam steps (lr {DP_LR:g}) of the "
-                f"shipped model, batch {SP_BATCH} at {SP_HW}x{SP_HW}, on {SP_BANDS} gloo ranks of "
-                f"{SP_HW // SP_BANDS} rows each against the unsharded step on the card: losses "
-                f"{rb[0]['losses']} vs {one['losses']} (max rel {loss_rel:.1e}, tol "
-                f"{SP_LOSS_TOL[label]:.0e}); parameters max abs diff {diffs.max().item():.2e} "
-                f"(tol 2*lr*steps = {2 * DP_LR * SP_STEPS:.0e}; "
-                f"{(diffs > 1e-3 * DP_LR).float().mean().item():.2e} of them more than 1e-3*lr "
-                f"apart), ranks bitwise equal {same}; launches per rank {ln} (unsharded: "
-                f"{one['launches']}) {'ok' if ok else 'FAIL'}")
-            log(f"spatial 11 (b) {label}: {sp_ms:.1f} ms/iteration on {SP_BANDS} gloo ranks "
-                f"sharing the card (steps 2-{SP_STEPS}; halos and head gather through host "
-                f"copies), peak memory per rank "
-                f"{[round(r['peak_bytes'] / 2**20) for r in rb]} MiB; unsharded "
-                f"{one_ms:.1f} ms/iteration, peak {one['peak_bytes'] / 2**20:.0f} MiB; "
-                f"{card_identity()} (two ranks on one card: not a speed figure)")
-            if not ok:
-                raise AssertionError(f"spatial 11 (b) {label}: the spatial step disagrees")
-            runs[label] = {"ranks": ln, "unsharded": one["launches"], "ms": sp_ms,
-                           "unsharded_ms": one_ms,
-                           "peak_mib": [r["peak_bytes"] / 2**20 for r in rb],
-                           "unsharded_peak_mib": one["peak_bytes"] / 2**20}
+        for D, labels in SP_GRIDS.items():
+            cases = [c for c in SP_CASES if c[0] in labels]
+            nproc = D * SP_BANDS
+            spec = dp_spec(tmp, f"sp{D}", backend="gloo", device="cuda:0", spatial_check={
+                "batches": os.path.join(tmp, "batches.npz"), "model_parallel": SP_BANDS,
+                "cases": cases})
+            launch_ranks(f"spatial 11 (b) gloo, {nproc} ranks ({D} x {SP_BANDS}) on one card",
+                         nproc, ["chip_smoke.py", "--dp-worker", spec])
+            ranks = read_ranks(spec, nproc)
+            for case in cases:
+                label, cfg, bf16, loss_cfg = case
+                if label not in unsharded:
+                    unsharded[label] = spatial_steps(torch, kern, torch.device("cuda"),
+                                                     torch.cuda.synchronize, batches, cfg, bf16,
+                                                     loss_cfg=loss_cfg)
+                    torch.cuda.empty_cache()
+                key = label if D == 1 else f"{label}_{D}x{SP_BANDS}"
+                runs[key] = check_spatial_case(torch, spec, ranks, case, *unsharded[label])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 11 took {time.perf_counter() - t0:.1f} s")

@@ -23,6 +23,10 @@ as the H5 readers do.  Items are bit-identical to ``H5ClipDataset.get``,
 on the H5 the clip came from.  Frames stored at another resolution than
 the GT one (``scale``/``ori_scale``) are resized as the JAX readers resize
 them with cv2, by :func:`~ebfi_tpu_torch.data.resize.resize_cubic`.
+
+Event stacks and the blur synthesis of frames stored at the GT resolution
+run on the C++ host plane (:mod:`ebfi_tpu_torch.native`, built at first
+use), bit for bit with the numpy plane of :mod:`.encodings`.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .encodings import events_to_stack, normalize_event_ts
+from .. import native
 from .resize import resize_cubic
 
 FORMAT = "ebfi_clip_npz/1"
@@ -301,11 +305,8 @@ class _ClipReader:
         xs, ys, ts, ps = (self.clip[f"{prex}_{a}"][i0:i1] for a in ("xs", "ys", "ts", "ps"))
         if len(xs) == 0:
             xs = ys = ts = ps = np.array([0.0])
-        ts = normalize_event_ts(ts)
-        stack = events_to_stack(
-            xs, ys, ts, ps.astype(np.float64), self.time_bins, self.spec.gt_resolution
-        )  # (2, TB, H, W)
-        return stack.transpose(2, 3, 1, 0).reshape(*self.spec.gt_resolution, 2 * self.time_bins)
+        return native.events_to_stack(xs, ys, native.normalize_ts(ts), ps, self.time_bins,
+                                      self.spec.gt_resolution)
 
     def _augment(self, item: dict, kinds: dict, seed: int) -> dict:
         if self.config["data_augment"]["enabled"]:
@@ -359,7 +360,12 @@ class NpzClipDataset(_ClipReader):
 
     def _blurry(self, indices: Sequence[int]) -> np.ndarray:
         """Blur synthesis: the uint8 mean in f64, cast to f32, then divided
-        by 255 in f32 (the reference's op order)."""
+        by 255 in f32 (the reference's op order); on the native plane where
+        the frames are stored at the GT resolution, as the JAX reader
+        gates its own."""
+        images = self.clip["images"]
+        if images.shape[1:3] == tuple(self.spec.gt_resolution):
+            return native.blurry_mean(images, indices)
         return self._frames(indices).mean(0).astype(np.float32) / np.float32(255.0)
 
     def _neighbors(self, latent: Sequence[int]) -> np.ndarray:

@@ -8,6 +8,10 @@ of <= 3 events or all-zero timestamps.  The accumulation is a
 ``np.bincount`` over flat pixel indices instead of ``np.add.at``: both add
 the weights in f64 in event order, so the sums are the same bit for bit,
 and bincount is much faster at 720p.
+
+These are the plain versions of the loader's host plane: the loader runs
+its C++ counterparts (:mod:`ebfi_tpu_torch.native`), which equal them bit
+for bit; the tests hold one to the other.
 """
 from __future__ import annotations
 
@@ -58,8 +62,22 @@ def events_to_stack(
     return out.astype(np.float32)
 
 
+def item_layout(stack: np.ndarray) -> np.ndarray:
+    """A (2, B, H, W) stack in the loader's item layout, (H, W, 2 * B):
+    bin-major, polarity-minor."""
+    return stack.transpose(2, 3, 1, 0).reshape(*stack.shape[2:], -1)
+
+
 def normalize_event_ts(ts: np.ndarray) -> np.ndarray:
     """``(ts - ts[0]) / (ts[-1] - ts[0] + 1e-6)`` in f64, applied before
     stacking."""
     ts = np.asarray(ts, np.float64)
     return (ts - ts[0]) / (ts[-1] - ts[0] + 1e-6)
+
+
+def blurry_mean(images: np.ndarray, indices) -> np.ndarray:
+    """The blurry frame of ``images[indices]`` (uint8 (N, H, W, 3) BGR):
+    float32 (H, W, 3) RGB, the uint8 mean in f64 cast to f32, then divided
+    by 255 in f32 (the reference's op order)."""
+    frames = np.stack([np.asarray(images[i])[:, :, ::-1] for i in indices])
+    return frames.mean(0).astype(np.float32) / np.float32(255.0)

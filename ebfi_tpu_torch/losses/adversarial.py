@@ -22,13 +22,18 @@ weights are drawn per element over ``fake``'s shape from a generator
 seeded 0 (the JAX state's ``key(0)``), on ``fake``'s device, or given to
 ``step`` as ``eps``.
 
-Data parallelism (``world`` ranks, each with its share of the batch): BN
-statistics are the global batch's (``sync_stats``), the discriminator's
-gradients are averaged over the ranks before each of its updates, in a
-``record_function`` range ``ebfi::disc_grad_allreduce``, and each rank
-takes its slice of a draw over the global batch's shape, so the ranks
-step as one process on the whole batch.  Its losses are means, so they
-need no scaling.
+Data parallelism (``world`` shards of the batch, this rank's shard
+``rank``, their ranks ``group``): BN statistics are the global batch's
+(summed over ``group``), the discriminator's gradients are averaged over
+every rank before each of its updates, in a ``record_function`` range
+``ebfi::disc_grad_allreduce``, and each rank takes its shard's slice of a
+draw over the global batch's shape, so the ranks step as one process on
+the whole batch.  Without spatial parallelism these are the world size,
+the process's rank and None (the world); under DP x SP the data axis:
+``spec.data``, ``spec.data_index`` and ``spec.data_group``.  The ranks of
+a model group hold the same items, so the mean over every rank is the
+mean over the data shards.  Its losses are means, so they need no
+scaling.
 """
 from __future__ import annotations
 
@@ -58,11 +63,14 @@ def bce_logits(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 class AdversarialLoss:
-    def __init__(self, patch_size: int, gan_type: str = "GAN", gan_k: int = 1, world: int = 1):
+    def __init__(self, patch_size: int, gan_type: str = "GAN", gan_k: int = 1, world: int = 1,
+                 rank: Optional[int] = None, group=None):
         self.patch_size = patch_size  # unused, as in the JAX package: shapes come from init
         self.gan_type = gan_type
         self.gan_k = gan_k
-        self.world = world
+        self.world = world  # the data shards
+        self.rank = rank  # this rank's shard; the process's rank for None
+        self.group = group  # the shards' ranks; the world for None
 
     # -------------------------------------------------------------- #
 
@@ -70,7 +78,8 @@ class AdversarialLoss:
         """A discriminator for ``fake``'s (H, W) on its device, f32,
         initialised from ``seed``; its optimizer; the penalty's generator."""
         g = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
-        disc = build_discriminator(self.gan_type, fake.shape[1:3], sync=self.world > 1)
+        disc = build_discriminator(self.gan_type, fake.shape[1:3], sync=self.world > 1,
+                                   group=self.group)
         disc = init_discriminator(disc, g).to(fake.device)
         if self.gan_type in GP_TYPES:
             opt = torch.optim.Adam(disc.parameters(), 1e-5, betas=(0.0, 0.9), eps=1e-8)
@@ -127,7 +136,9 @@ class AdversarialLoss:
         B = fake.shape[0]
         eps = torch.rand((B * self.world, *fake.shape[1:]), generator=state.generator,
                          dtype=fake.dtype, device=fake.device)
-        rank = local_shard_info()[0] if self.world > 1 else 0
+        if self.world == 1:
+            return eps
+        rank = local_shard_info()[0] if self.rank is None else self.rank
         return eps[rank * B:(rank + 1) * B]
 
     def step(self, state: AdvState, fake, real, frames=None,
@@ -138,6 +149,12 @@ class AdversarialLoss:
         if frames is None:
             frames = torch.zeros((fake.shape[0], 2, *fake.shape[1:]), dtype=fake.dtype,
                                  device=fake.device)
+        if state.disc.sync != (self.world > 1) or (self.world > 1
+                                                    and state.disc.group is not self.group):
+            raise ValueError(
+                f"the discriminator's BN statistics run over (sync={state.disc.sync}, group="
+                f"{state.disc.group}) but this loss's data axis is (world={self.world}, group="
+                f"{self.group}): init the state with an AdversarialLoss of the same axis")
         fake_d = fake.detach()
         params = list(state.disc.parameters())
         d_total = 0.0
@@ -152,6 +169,11 @@ class AdversarialLoss:
                 for p in params:
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
+                # the mean over every rank, not over the data group: under
+                # DP x SP the replicas of a model group compute the same
+                # gradients only up to the card's nondeterministic kernels
+                # (cuDNN's weight gradients add with atomics), and a mean
+                # over the world keeps them bitwise equal
                 all_reduce_mean_([p.grad for p in params], range_name=DISC_GRAD_RANGE)
             state.opt.step()
             if self.gan_type == "WGAN":

@@ -16,10 +16,11 @@ head of two linear layers.  Variants:
 
 Batch norm uses the batch's statistics (mean and biased variance over
 B, H, W), with no running statistics, as the JAX package's.  With
-``sync_stats`` the statistics are those of the global batch of a
-data-parallel group: each rank's sums pass through an all-reduce that
-autograd differentiates (:func:`~ebfi_tpu_torch.parallel.all_reduce_sum`),
-which is what the JAX step computes on its batch sharded over ``data``.
+``sync`` the statistics are those of the global batch of a data-parallel
+group (``group``: the world for None; under spatial parallelism the data
+axis): each rank's sums pass through an all-reduce that autograd
+differentiates (:func:`~ebfi_tpu_torch.parallel.all_reduce_sum`), which
+is what the JAX step computes on its batch sharded over ``data``.
 
 Tensors are NHWC, convs run on their channels-last NCHW view, and the
 ladder's output is flattened in NHWC order, as flax flattens it, so the
@@ -43,15 +44,17 @@ LADDER_DEPTH = 7
 BN_EPS = 1e-5
 
 
-def batch_stat_norm(x: torch.Tensor, sync: bool = False, eps: float = BN_EPS) -> torch.Tensor:
+def batch_stat_norm(x: torch.Tensor, sync: bool = False, eps: float = BN_EPS,
+                    group=None) -> torch.Tensor:
     """(x - mean) / sqrt(var + eps) per channel over (B, H, W) of an NHWC
-    tensor; over the whole group's batch with ``sync``."""
+    tensor; with ``sync`` over the batch of every rank of ``group`` (the
+    world for None), each holding as many items."""
     n = x.shape[0] * x.shape[1] * x.shape[2]
     if sync and torch.distributed.is_initialized():
-        n *= torch.distributed.get_world_size()
-        mean = all_reduce_sum(x.sum(dim=(0, 1, 2), keepdim=True)) / n
+        n *= torch.distributed.get_world_size(group)
+        mean = all_reduce_sum(x.sum(dim=(0, 1, 2), keepdim=True), group) / n
         centered = x - mean
-        var = all_reduce_sum((centered * centered).sum(dim=(0, 1, 2), keepdim=True)) / n
+        var = all_reduce_sum((centered * centered).sum(dim=(0, 1, 2), keepdim=True), group) / n
     else:
         mean = x.sum(dim=(0, 1, 2), keepdim=True) / n
         centered = x - mean
@@ -61,9 +64,9 @@ def batch_stat_norm(x: torch.Tensor, sync: bool = False, eps: float = BN_EPS) ->
 
 class BasicBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1, bn: bool = True,
-                 sync: bool = False):
+                 sync: bool = False, group=None):
         super().__init__()
-        self.stride, self.bn, self.sync = stride, bn, sync
+        self.stride, self.bn, self.sync, self.group = stride, bn, sync, group
         self.conv = nn.Conv2d(in_ch, out_ch, 3, stride, 1, bias=False)
         if bn:
             self.scale = nn.Parameter(torch.ones(out_ch))
@@ -72,23 +75,23 @@ class BasicBlock(nn.Module):
     def forward(self, x):
         y = conv2d_nhwc(x, self.conv.weight, None, self.stride, 1)
         if self.bn:
-            y = batch_stat_norm(y, self.sync) * self.scale + self.bias
+            y = batch_stat_norm(y, self.sync, group=self.group) * self.scale + self.bias
         return F.leaky_relu(y, 0.2)
 
 
 class ConvLadder(nn.Module):
     def __init__(self, in_ch: int, base: int = 64, depth: int = LADDER_DEPTH, bn: bool = True,
-                 sync: bool = False):
+                 sync: bool = False, group=None):
         super().__init__()
         out_ch = base
-        blocks = [BasicBlock(in_ch, out_ch, bn=bn, sync=sync)]
+        blocks = [BasicBlock(in_ch, out_ch, bn=bn, sync=sync, group=group)]
         for i in range(depth):
             cin = out_ch
             if i % 2 == 1:
                 stride, out_ch = 1, out_ch * 2
             else:
                 stride = 2
-            blocks.append(BasicBlock(cin, out_ch, stride, bn=bn, sync=sync))
+            blocks.append(BasicBlock(cin, out_ch, stride, bn=bn, sync=sync, group=group))
         for i, b in enumerate(blocks):
             self.add_module(f"block{i}", b)
         self.out_ch = out_ch
@@ -136,9 +139,10 @@ class Conv3DPair(nn.Module):
 
 
 class Discriminator(nn.Module):
-    def __init__(self, hw: Tuple[int, int], gan_type: str = "GAN", sync: bool = False):
+    def __init__(self, hw: Tuple[int, int], gan_type: str = "GAN", sync: bool = False,
+                 group=None):
         super().__init__()
-        self.features = ConvLadder(3, bn=gan_type != "WGAN_GP", sync=sync)
+        self.features = ConvLadder(3, bn=gan_type != "WGAN_GP", sync=sync, group=group)
         self.classifier = Classifier(self.features.out_features(hw))
 
     def forward(self, x):
@@ -146,10 +150,10 @@ class Discriminator(nn.Module):
 
 
 class TemporalDiscriminator(nn.Module):
-    def __init__(self, hw: Tuple[int, int], sync: bool = False):
+    def __init__(self, hw: Tuple[int, int], sync: bool = False, group=None):
         super().__init__()
         self.feature_3d = Conv3DPair(3, 64)
-        self.features = ConvLadder(64, bn=False, sync=sync)
+        self.features = ConvLadder(64, bn=False, sync=sync, group=group)
         self.classifier = Classifier(self.features.out_features(hw))
 
     def forward(self, f0, f1, f2):
@@ -158,9 +162,9 @@ class TemporalDiscriminator(nn.Module):
 
 
 class FIDiscriminator(nn.Module):
-    def __init__(self, hw: Tuple[int, int], sync: bool = False):
+    def __init__(self, hw: Tuple[int, int], sync: bool = False, group=None):
         super().__init__()
-        self.features = ConvLadder(6, sync=sync)
+        self.features = ConvLadder(6, sync=sync, group=group)
         self.classifier = Classifier(self.features.out_features(hw))
 
     def forward(self, f0, f1):
@@ -168,10 +172,10 @@ class FIDiscriminator(nn.Module):
 
 
 class FICondDiscriminator(nn.Module):
-    def __init__(self, hw: Tuple[int, int], sync: bool = False):
+    def __init__(self, hw: Tuple[int, int], sync: bool = False, group=None):
         super().__init__()
         self.feature_3d = Conv3DPair(3, 8)
-        self.features = ConvLadder(8, base=8, sync=sync)
+        self.features = ConvLadder(8, base=8, sync=sync, group=group)
         self.classifier = Classifier(self.features.out_features(hw))
 
     def forward(self, f0, f1, f2):
@@ -180,10 +184,10 @@ class FICondDiscriminator(nn.Module):
 
 
 class STDiscriminator(nn.Module):
-    def __init__(self, hw: Tuple[int, int], sync: bool = False):
+    def __init__(self, hw: Tuple[int, int], sync: bool = False, group=None):
         super().__init__()
-        self.s_features = ConvLadder(3, base=8, sync=sync)
-        self.t_features = ConvLadder(6, base=8, sync=sync)
+        self.s_features = ConvLadder(3, base=8, sync=sync, group=group)
+        self.t_features = ConvLadder(6, base=8, sync=sync, group=group)
         self.classifier = Classifier(2 * self.s_features.out_features(hw))
 
     def forward(self, f0, f1, f2):
@@ -192,20 +196,26 @@ class STDiscriminator(nn.Module):
         return self.classifier(torch.cat([_flat(fs), _flat(ft)], dim=-1))
 
 
-def build_discriminator(gan_type: str, hw: Tuple[int, int], sync: bool = False) -> nn.Module:
-    """The discriminator of ``gan_type`` for (H, W) inputs."""
+def build_discriminator(gan_type: str, hw: Tuple[int, int], sync: bool = False,
+                        group=None) -> nn.Module:
+    """The discriminator of ``gan_type`` for (H, W) inputs; with ``sync``
+    its BN statistics run over the ranks of ``group`` (the world for
+    None).  The module keeps both as ``sync`` and ``group``."""
     hw = (int(hw[0]), int(hw[1]))
     if gan_type == "T_WGAN_GP":
-        return TemporalDiscriminator(hw, sync)
-    if gan_type == "FI_GAN":
-        return FIDiscriminator(hw, sync)
-    if gan_type == "FI_Cond_GAN":
-        return FICondDiscriminator(hw, sync)
-    if gan_type == "STGAN":
-        return STDiscriminator(hw, sync)
-    if gan_type in ("GAN", "WGAN", "WGAN_GP"):
-        return Discriminator(hw, gan_type, sync)
-    raise ValueError(f"Unknown gan_type {gan_type!r}")
+        disc = TemporalDiscriminator(hw, sync, group)
+    elif gan_type == "FI_GAN":
+        disc = FIDiscriminator(hw, sync, group)
+    elif gan_type == "FI_Cond_GAN":
+        disc = FICondDiscriminator(hw, sync, group)
+    elif gan_type == "STGAN":
+        disc = STDiscriminator(hw, sync, group)
+    elif gan_type in ("GAN", "WGAN", "WGAN_GP"):
+        disc = Discriminator(hw, gan_type, sync, group)
+    else:
+        raise ValueError(f"Unknown gan_type {gan_type!r}")
+    disc.sync, disc.group = sync, group
+    return disc
 
 
 @torch.no_grad()

@@ -53,8 +53,23 @@ gather's backward hands each rank its band's rows of the gradient: the
 ranks' gradients sum over the model axis to the shard's, and the sum
 terms scale by D (not by D x S) so that the mean over the data axis is
 the global batch's.  The Updater, built with the same ``spatial``, sums
-over the model axis and averages over the data axis.  The adversarial
-and perceptual terms raise under ``spatial``: not ported.
+over the model axis and averages over the data axis.
+
+The adversarial and perceptual terms under ``spatial`` read the gathered
+heads: every rank of a model group computes LPIPS, and steps its copy of
+the discriminator, on its data shard's whole items (``final`` gathered,
+the discriminator conditioned on the whole ``frame`` twice), so the
+model's and the discriminator's parameters stay equal across the group.
+The discriminator's BN statistics go over the data axis
+(``spec.data_group``), its gradients are averaged over every rank (the
+mean over the data shards, as a model group's ranks hold the same items;
+it keeps the replicas bitwise equal where the card's kernels are not
+deterministic), and the penalty's draw is sliced by ``spec.data_index``.
+Both terms are means: no scaling by D.  Their
+backward reaches each rank's band through the gather, as the other
+terms' does.  This costs S times the terms' compute, and each rank holds
+their activations for the whole items; cutting them into bands with
+``halo_rows`` would not.
 """
 from __future__ import annotations
 
@@ -141,16 +156,21 @@ def make_loss_fn(detail_enabled: bool, phase_switch_iter: int = 10_000, compute_
     return loss_fn
 
 
-def build_adversarial(loss_cfg: Optional[dict], world: int = 1) -> Optional[AdversarialLoss]:
+def build_adversarial(loss_cfg: Optional[dict], world: int = 1, rank: Optional[int] = None,
+                      group=None) -> Optional[AdversarialLoss]:
     """The AdversarialLoss of ``trainer.loss.adversarial`` (None when it is
-    absent or off), STGAN by default as the reference constructs it;
-    ``world``: the data-parallel ranks."""
+    absent or off), STGAN by default as the reference constructs it, over
+    the data axis ``world`` (shards), ``rank`` (this rank's shard, the
+    process's rank for None) and ``group`` (the shards' ranks, the world
+    for None): the data-parallel world, or a spatial spec's ``data``,
+    ``data_index`` and ``data_group``.  Build the one given to
+    :func:`init_adv_state` with the step's axis."""
     acfg = (loss_cfg or {}).get("adversarial") or {}
     if not acfg.get("enabled", False):
         return None
     return AdversarialLoss(patch_size=int(acfg.get("patch_size", 32)),
                            gan_type=acfg.get("gan_type", "STGAN"),
-                           gan_k=int(acfg.get("gan_k", 1)), world=world)
+                           gan_k=int(acfg.get("gan_k", 1)), world=world, rank=rank, group=group)
 
 
 def init_adv_state(adv: AdversarialLoss, seed, batch_like: Dict[str, Any]) -> AdvState:
@@ -194,24 +214,22 @@ def make_train_step(
     for DP x SP: the batch is then this rank's data shard, whole (every
     rank of a model group is given the same items), H a multiple of 8 x
     the model axis; the sum terms scale by the spec's data axis (``world``
-    must be 1 or that); the updater must be built with the same spec.  The
-    train_loss is the data shard's, the same on every rank of a model
-    group."""
+    must be 1 or that); the updater must be built with the same spec, and
+    the discriminator's state from ``build_adversarial(loss_cfg,
+    spatial.data, spatial.data_index, spatial.data_group)``.  The
+    train_loss, g_loss and d_loss are the data shard's, the same on every
+    rank of a model group."""
     if spatial is not None:
         if not isinstance(spatial, SpatialSpec):
             raise TypeError("spatial takes the SpatialSpec of "
                             f"ebfi_tpu_torch.parallel.spatial_shardings(), got {spatial!r}")
-        for term in ("adversarial", "perceptual"):
-            if ((loss_cfg or {}).get(term) or {}).get("enabled", False):
-                raise NotImplementedError(
-                    f"the {term} term (trainer.loss.{term}) under spatial (H-sharded) "
-                    "parallelism is not ported to ebfi_tpu_torch")
         if world not in (1, spatial.data):
             raise ValueError(f"world={world}, but the spatial spec's data axis is {spatial.data}")
         world = spatial.data
     loss_fn = make_loss_fn(detail_enabled, phase_switch_iter, compute_dtype, world, spatial)
     lpips, w_lpips = build_lpips_term(loss_cfg)
-    adv = build_adversarial(loss_cfg, world)
+    adv = build_adversarial(loss_cfg, world) if spatial is None else build_adversarial(
+        loss_cfg, spatial.data, spatial.data_index, spatial.data_group)
     w_adv = float(((loss_cfg or {}).get("adversarial") or {}).get("weight", 0.01))
 
     def step_fn(state: TrainState, batch):

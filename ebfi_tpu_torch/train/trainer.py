@@ -243,13 +243,12 @@ class Trainer:
 
     def _log_images(self, it: int, batch) -> None:
         """Image panels: events, blurry, sharp, GT."""
-        from ..utils.vis import render_event_cnt
+        from ..utils.vis import render_event_cnt, stack_to_cnt
 
         with torch.no_grad():
             _, final = self.state.model(batch["frame"][:1], batch["event"][:1], batch["t"][:1],
                                         batch["gt_ex"][:1] if "gt_ex" in batch else None)
-        ev = batch["event"][0].float().cpu().numpy()
-        cnt = ev.reshape(*ev.shape[:2], -1, 2).sum(axis=2)  # (H, W, 2) per polarity
+        cnt = stack_to_cnt(batch["event"][0].float().cpu().numpy())
         to_u8 = lambda x: (np.clip(x.float().cpu().numpy(), 0, 1) * 255).astype("uint8")  # noqa: E731
         self.writer.add_image("train_HR_events", render_event_cnt(cnt), it, dataformats="HWC")
         self.writer.add_image("train_blurry_frame", to_u8(batch["frame"][0]), it, dataformats="HWC")

@@ -1,6 +1,7 @@
 """Frame and event PNG writers of the inference CLI (port of
 ``ebfi_tpu/utils/vis.py``: ``save_frame``, ``render_event_cnt``,
-``save_event_cnt``).
+``save_event_cnt``, ``stack_to_cnt``, ``save_event_stack_grid``; its
+matplotlib renderers are not ported).
 
 PNGs are written without an image library: 8-bit RGB (or grey), filter 0
 on every row unless asked otherwise, the rows deflated by ``zlib`` at
@@ -206,3 +207,35 @@ def save_event_cnt(
 ) -> None:
     img = render_event_cnt(event_cnt, color_scheme, black_background, normalize)
     save_frame((img * 255).astype(np.uint8), path)
+
+
+def stack_to_cnt(stack: np.ndarray) -> np.ndarray:
+    """(H, W, 2 * TB) bin-major, polarity-minor stack -> (H, W, 2) counts per
+    polarity, summed over the bins."""
+    H, W, C = stack.shape
+    return stack.reshape(H, W, C // 2, 2).sum(axis=2)
+
+
+def save_event_stack_grid(stack: np.ndarray, path: str, vmax: float = 10.0) -> None:
+    """Each bin of an (H, W, 2 * TB) stack as a signed image (positive minus
+    negative over ``vmax``, clipped: positive blue, negative red, white
+    for none), the bins tiled row-major into a near-square grid with
+    2-pixel white gutters."""
+    H, W, C = stack.shape
+    tb = C // 2
+    signed = stack.reshape(H, W, tb, 2)
+    signed = signed[..., 0] - signed[..., 1]
+    rows = int(np.sqrt(tb))
+    while tb % rows:
+        rows -= 1
+    cols = tb // rows
+    canvas = np.ones(((H + 2) * rows, (W + 2) * cols, 3))
+    for i in range(tb):
+        r, c = divmod(i, cols)
+        v = np.clip(signed[:, :, i] / vmax, -1, 1)
+        img = np.ones((H, W, 3))
+        img[..., 0] -= np.clip(v, 0, 1)
+        img[..., 1] -= np.abs(v)
+        img[..., 2] -= np.clip(-v, 0, 1)
+        canvas[r * (H + 2):r * (H + 2) + H, c * (W + 2):c * (W + 2) + W] = img
+    save_frame((np.clip(canvas, 0, 1) * 255).astype(np.uint8), path)

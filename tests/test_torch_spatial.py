@@ -26,7 +26,30 @@ every check of its grid once, and the tests read its results.
     2 * lr per step (as ``test_torch_distributed.py`` holds bf16 DP);
   - the ranks' parameters bitwise equal, and the grid's groups as
     ``make_mesh`` lays them out (model axis fastest).
-The ranks import no JAX; the JAX step runs once, in the test process.
+- The same launches, with the adversarial and perceptual terms (f32,
+  STEPS Adam steps, ``gan_k`` 1): STGAN with LPIPS (a random AlexNet,
+  ``load_lpips_params(None, None)``) on both grids, and WGAN_GP on the
+  2 x 2 grid, where D = 2 slices the penalty's draw; STGAN's
+  discriminator starts from the JAX package's initial weights:
+  - against the port's unsharded step with the same ``loss_cfg``:
+    train_loss, g_loss, d_loss (and lpips_loss) within 1e-5 relative, the
+    model's and the discriminator's parameters within the Adam tolerance
+    above;
+  - STGAN with LPIPS against the JAX package's ``make_train_step(...,
+    spatial=True, loss_cfg=...)`` on its 2 x 2 mesh, in f32: train_loss
+    within 1e-5 relative, g_loss, d_loss and lpips_loss within 1e-4 (the
+    adversarial step's f32 tolerance of ``test_torch_train.py``), the
+    model's and the discriminator's parameters within the Adam tolerance
+    above.  ``test_torch_adversarial.py`` holds the discriminator in f64
+    to a share of at most 1e-4 more than 1e-6 * lr apart; in f32 against
+    the jitted JAX step 0.32 of them are (f32 sums in another order; XLA
+    fuses the BN ladders' batch variance), while the largest difference is
+    3.0e-6 on 1 x 2 and 1.03e-5 on 2 x 2 (0.01 * lr: no Adamax update took
+    the other sign) and 1.4e-5 and 2.5e-5 of them are more than
+    1e-3 * lr apart.  WGAN_GP is held to the port alone: the JAX step
+    draws its penalty weights from another generator;
+  - every replica bitwise equal, the discriminator's included.
+The ranks import no JAX; the JAX steps run once each, in the test process.
 """
 import json
 
@@ -36,9 +59,10 @@ import numpy as np
 import pytest
 import torch
 
-from ebfi_tpu_torch.models import EVFIAutoEx, params_from_jax
+from ebfi_tpu_torch.models import EVFIAutoEx, discriminator_params_from_jax, params_from_jax
 from ebfi_tpu_torch.parallel import spatial_shardings
-from ebfi_tpu_torch.train import TrainState, build_optimizer, make_train_step
+from ebfi_tpu_torch.train import (TrainState, build_adversarial, build_optimizer,
+                                  init_adv_state, make_train_step)
 from test_torch_distributed import launch
 import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
@@ -47,6 +71,12 @@ MODEL = dict(frame_basech=8, event_basech=8, inter_ch=8, tb=4, use_gt_ex=False,
              blurry_fashion="DarkCh", bl_in=1, step=2, dual_path=True, residual=True,
              detail_enabled=True, channels=(4, 6, 8, 12))
 B, H, W, STEPS, LR = 2, 128, 32, 2, 1e-3
+STGAN_LPIPS = {"adversarial": {"enabled": True, "gan_type": "STGAN", "weight": 0.01, "gan_k": 1},
+               "perceptual": {"enabled": True, "weight": 0.1}}
+WGAN_GP = {"adversarial": {"enabled": True, "gan_type": "WGAN_GP", "weight": 0.01, "gan_k": 1}}
+ADV_CASES = {"stgan_lpips": STGAN_LPIPS, "wgan_gp": WGAN_GP}
+ADV_GRIDS = {2: ["stgan_lpips"], 4: ["stgan_lpips", "wgan_gp"]}  # ranks -> cases
+METRICS = ("train_loss", "g_loss", "d_loss", "lpips_loss")
 OP_TOL = 1e-5  # relative to the largest magnitude of the whole image's result
 EXACT_OPS = ("dark_channel", "laplacian_response")  # their forwards: min-pool, integer stencil
 NO_GRAD_OPS = ("laplacian_response",)  # an integer map
@@ -63,7 +93,8 @@ from ebfi_tpu_torch.ops import dark_channel, kernel_conv2d_auto, laplacian_respo
 from ebfi_tpu_torch.ops.cuda.fac import fac_band_cuda
 from ebfi_tpu_torch.parallel import (band_scope, current_band, gather_rows, halo_rows,
                                      maybe_init_distributed, model_sum, spatial_shardings)
-from ebfi_tpu_torch.train import TrainState, build_optimizer, make_train_step
+from ebfi_tpu_torch.train import (TrainState, build_adversarial, build_optimizer,
+                                  init_adv_state, make_train_step)
 
 spec_in = json.loads(sys.argv[1])
 assert maybe_init_distributed()
@@ -182,22 +213,34 @@ weights = torch.load(spec_in["weights"], weights_only=True)
 out = {"groups": [dist.get_process_group_ranks(spec.model_group),
                   dist.get_process_group_ranks(spec.data_group)],
        "index": [spec.data_index, spec.band_index]}
-for label, bf16 in (("f32", False), ("bf16", True)):
+runs = [(label, bf16, None) for label, bf16 in (("f32", False), ("bf16", True))]
+runs += [(label, False, cfg) for label, cfg in spec_in["adv_cases"].items()]
+for label, bf16, loss_cfg in runs:
     model = EVFIAutoEx(**spec_in["model"], fast_mod=bf16)
     model.load_state_dict(weights)
     updater, _ = build_optimizer(model, {"name": "Adam", "args": {"lr": spec_in["lr"]}},
                                  spatial=spec)
-    step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None, spatial=spec)
-    state, losses = TrainState(model, updater), []
+    step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None, spatial=spec,
+                           loss_cfg=loss_cfg)
+    state, metrics = TrainState(model, updater), {}
+    if loss_cfg and loss_cfg["adversarial"]["enabled"]:
+        sample = torch.zeros((1,) + data["target"].shape[2:])
+        adv = build_adversarial(loss_cfg, spec.data, spec.data_index, spec.data_group)
+        state.adv_state = init_adv_state(adv, 0, {"target": sample, "frame": sample})
+        state.adv_state.disc.load_state_dict(torch.load(spec_in["disc"] % label,
+                                                        weights_only=True))
     n = data["frame"].shape[1] // spec.data
     for i in range(data["frame"].shape[0]):
         b = {k: torch.from_numpy(data[k][i, spec.data_index * n:(spec.data_index + 1) * n])
              for k in ("frame", "event", "t", "target")}
-        state, metrics = step(state, b)
-        losses.append(float(metrics["train_loss"]))
-    out[label] = losses
-    np.savez(spec_in["out"] % rank + "." + label + ".npz",
-             **{k: v.numpy() for k, v in model.state_dict().items()})
+        state, m = step(state, b)
+        for k, v in m.items():
+            metrics.setdefault(k, []).append(float(v))
+    out[label] = metrics["train_loss"] if loss_cfg is None else metrics
+    params = {k: v.numpy() for k, v in model.state_dict().items()}
+    if state.adv_state is not None:
+        params.update({"disc." + k: v.numpy() for k, v in state.adv_state.disc.state_dict().items()})
+    np.savez(spec_in["out"] % rank + "." + label + ".npz", **params)
 json.dump(out, open(spec_in["out"] % rank, "w"))
 dist.destroy_process_group()
 """
@@ -212,16 +255,65 @@ def _batches(seed=3):
             "target": rng.uniform(0, 1, (STEPS, B, H, W, 3)).astype(np.float32)}
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    """The JAX package's spatial step on a 2 x 2 CPU mesh, the port's
-    unsharded f32 and bf16 steps, and the weights and batches they start
-    from (written for the ranks)."""
-    from ebfi_tpu.models import EVFIAutoEx as JaxEVFI
+def _jax_steps(jm, params, batches, loss_cfg=None, adv_state=None):
+    """STEPS steps of the JAX package's spatial step on its 2 x 2 CPU mesh:
+    (metrics per step, the model's parameters and, with the adversarial
+    term, the discriminator's as ``disc.`` names, in the port's layout)."""
     from ebfi_tpu.parallel.mesh import dp_shardings, make_mesh
     from ebfi_tpu.train import build_optimizer as jax_build_optimizer
     from ebfi_tpu.train import create_train_state
     from ebfi_tpu.train import make_train_step as jax_train_step
+
+    tx, _ = jax_build_optimizer({"name": "Adam", "args": {"lr": LR}})
+    mesh = make_mesh(num_devices=4, model_parallel=2)
+    batch_sh, repl = dp_shardings(mesh)
+    state = jax.device_put(create_train_state(jm, params, tx).replace(adv_state=adv_state), repl)
+    step = jax_train_step(jm, mesh=mesh, spatial=True, donate=False, loss_cfg=loss_cfg)
+    metrics = {}
+    for i in range(STEPS):
+        state, m = step(state, {k: jax.device_put(v[i], batch_sh) for k, v in batches.items()})
+        for k, v in m.items():
+            metrics.setdefault(k, []).append(float(v))
+    out = {k: v.numpy() for k, v in params_from_jax(jax.tree.map(np.asarray,
+                                                                 state.params)).items()}
+    if adv_state is not None:
+        out.update({"disc." + k: v.numpy() for k, v in discriminator_params_from_jax(
+            jax.tree.map(np.asarray, state.adv_state.params)).items()})
+    return metrics, out
+
+
+def _port_steps(weights, batches, bf16=False, loss_cfg=None, disc=None):
+    """STEPS steps of the port's unsharded step on the whole batches:
+    (metrics per step, parameters as ``_jax_steps`` gives them)."""
+    model = EVFIAutoEx(**MODEL, fast_mod=bf16)
+    model.load_state_dict(weights)
+    updater, _ = build_optimizer(model, {"name": "Adam", "args": {"lr": LR}})
+    step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None, loss_cfg=loss_cfg)
+    state, metrics = TrainState(model, updater), {}
+    if disc is not None:
+        sample = torch.zeros((1, H, W, 3))
+        state.adv_state = init_adv_state(build_adversarial(loss_cfg), 0,
+                                         {"target": sample, "frame": sample})
+        state.adv_state.disc.load_state_dict(disc)
+    for i in range(STEPS):
+        state, m = step(state, {k: torch.from_numpy(v[i]) for k, v in batches.items()})
+        for k, v in m.items():
+            metrics.setdefault(k, []).append(float(v))
+    out = {k: v.numpy() for k, v in model.state_dict().items()}
+    if disc is not None:
+        out.update({"disc." + k: v.numpy() for k, v in state.adv_state.disc.state_dict().items()})
+    return metrics, out
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The JAX package's spatial step on a 2 x 2 CPU mesh, plain and with
+    STGAN and LPIPS; the port's unsharded f32 and bf16 steps and its f32
+    steps with each adversarial case; and the weights and batches they
+    start from (written for the ranks)."""
+    from ebfi_tpu.models import EVFIAutoEx as JaxEVFI
+    from ebfi_tpu.train.train_step import build_adversarial as jax_build_adversarial
+    from ebfi_tpu.train.train_step import init_adv_state as jax_init_adv_state
 
     d = tmp_path_factory.mktemp("spatial")
     batches = _batches()
@@ -232,28 +324,25 @@ def reference(tmp_path_factory):
     weights = params_from_jax(jax.tree.map(np.asarray, params))
     torch.save(weights, d / "weights.pt")
 
-    tx, _ = jax_build_optimizer({"name": "Adam", "args": {"lr": LR}})
-    mesh = make_mesh(num_devices=4, model_parallel=2)
-    batch_sh, repl = dp_shardings(mesh)
-    state = jax.device_put(create_train_state(jm, params, tx), repl)
-    step = jax_train_step(jm, mesh=mesh, spatial=True, donate=False)
-    jax_losses = []
-    for i in range(STEPS):
-        state, m = step(state, {k: jax.device_put(v[i], batch_sh) for k, v in batches.items()})
-        jax_losses.append(float(m["train_loss"]))
-    out = {"dir": d, "jax": (jax_losses, {k: v.numpy() for k, v in params_from_jax(
-        jax.tree.map(np.asarray, state.params)).items()})}
-
+    metrics, jparams = _jax_steps(jm, params, batches)
+    out = {"dir": d, "jax": (metrics["train_loss"], jparams)}
     for label, bf16 in (("f32", False), ("bf16", True)):
-        model = EVFIAutoEx(**MODEL, fast_mod=bf16)
-        model.load_state_dict(weights)
-        updater, _ = build_optimizer(model, {"name": "Adam", "args": {"lr": LR}})
-        tstep = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None)
-        tstate, losses = TrainState(model, updater), []
-        for i in range(STEPS):
-            tstate, m = tstep(tstate, {k: torch.from_numpy(v[i]) for k, v in batches.items()})
-            losses.append(float(m["train_loss"]))
-        out[label] = (losses, {k: v.numpy() for k, v in model.state_dict().items()})
+        metrics, tparams = _port_steps(weights, batches, bf16)
+        out[label] = (metrics["train_loss"], tparams)
+
+    # STGAN's discriminator from the JAX package's init (the JAX step starts
+    # from it too), WGAN_GP's from the port's
+    sample = {"target": jnp.zeros((1, H, W, 3)), "frame": jnp.zeros((1, H, W, 3))}
+    jadv = jax.jit(lambda key: jax_init_adv_state(jax_build_adversarial(STGAN_LPIPS), key,
+                                                  sample))(jax.random.key(9))
+    discs = {"stgan_lpips": discriminator_params_from_jax(jax.tree.map(np.asarray, jadv.params))}
+    tsample = torch.zeros((1, H, W, 3))
+    discs["wgan_gp"] = init_adv_state(build_adversarial(WGAN_GP), 9, {
+        "target": tsample, "frame": tsample}).disc.state_dict()
+    for label, cfg in ADV_CASES.items():
+        torch.save(discs[label], d / f"disc.{label}.pt")
+        out["port_" + label] = _port_steps(weights, batches, loss_cfg=cfg, disc=discs[label])
+    out["jax_stgan_lpips"] = _jax_steps(jm, params, batches, STGAN_LPIPS, jadv)
     return out
 
 
@@ -264,14 +353,16 @@ def _launch(reference, ranks):
     spec = {"model_parallel": 2, "model": {**MODEL, "channels": list(MODEL["channels"])},
             "lr": LR, "batches": str(d / "batches.npz"), "weights": str(d / "weights.pt"),
             "out": str(d / f"step{ranks}.rank%d.json"),
-            "ops_out": str(d / "ops.rank%d.json") if ranks == 2 else None}
+            "ops_out": str(d / "ops.rank%d.json") if ranks == 2 else None,
+            "adv_cases": {label: ADV_CASES[label] for label in ADV_GRIDS[ranks]},
+            "disc": str(d / "disc.%s.pt")}
     for rc, out, err in launch(ranks, ["-c", WORKER, json.dumps(spec)], timeout=LAUNCH_TIMEOUT_S):
         assert rc == 0, err[-3000:]
     results = []
     for r in range(ranks):
         with open(spec["out"] % r) as f:
             res = json.load(f)
-        for label in ("f32", "bf16"):
+        for label in ("f32", "bf16", *ADV_GRIDS[ranks]):
             res[label + "_params"] = dict(np.load(spec["out"] % r + f".{label}.npz"))
         if spec["ops_out"]:
             with open(spec["ops_out"] % r) as f:
@@ -329,6 +420,35 @@ def test_spatial_step_matches(reference, two_ranks, four_ranks, ranks, against):
     got = np.mean([res[label] for res in results], axis=0)
     np.testing.assert_allclose(got, want_losses, rtol=1e-2 if label == "bf16" else 1e-5)
     _assert_adam_close(results[0][label + "_params"], want_params, label == "bf16")
+
+
+ADV_RUNS = [(ranks, label, against) for ranks, labels in ADV_GRIDS.items() for label in labels
+            for against in ("port", "jax") if against == "port" or label == "stgan_lpips"]
+
+
+@pytest.mark.parametrize("ranks,case,against", ADV_RUNS)
+def test_spatial_step_with_adversarial_and_perceptual_terms(reference, two_ranks, four_ranks,
+                                                            ranks, case, against):
+    results = two_ranks if ranks == 2 else four_ranks
+    want_metrics, want_params = reference[f"{against}_{case}"]
+    params = [res[case + "_params"] for res in results]
+    assert any(k.startswith("disc.") for k in want_params)
+    assert sorted(params[0]) == sorted(want_params)
+    for r in range(1, ranks):  # bitwise equal replicas, the discriminator's included
+        for k in want_params:
+            np.testing.assert_array_equal(params[r][k], params[0][k], err_msg=k)
+    for k in METRICS:
+        if k not in want_metrics:
+            assert all(k not in res[case] for res in results)
+            continue
+        # every rank's metric is its data shard's; their mean is the global batch's
+        got = np.mean([res[case][k] for res in results], axis=0)
+        rtol = 1e-5 if against == "port" or k == "train_loss" else 1e-4
+        np.testing.assert_allclose(got, want_metrics[k], rtol=rtol, err_msg=k)
+    model = {k: v for k, v in want_params.items() if not k.startswith("disc.")}
+    _assert_adam_close(params[0], model, False)
+    disc = {k: v for k, v in want_params.items() if k.startswith("disc.")}
+    _assert_adam_close(params[0], disc, False)
 
 
 @pytest.mark.parametrize("ranks", [2, 4])

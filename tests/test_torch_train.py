@@ -181,12 +181,13 @@ def test_exposure_step_matches_jax(fashion):
 
 
 def test_unported_options_raise():
-    # spatial parallelism is ported (test_torch_spatial.py); the adversarial
-    # and perceptual terms under it are not, and raise naming the feature
+    # spatial parallelism is ported, and so are the adversarial and
+    # perceptual terms under it (test_torch_spatial.py): the step builds
+    # with each term on, and with both
     spec = spatial_shardings(1)
-    for term in ("adversarial", "perceptual"):
-        with pytest.raises(NotImplementedError, match=f"the {term} term .* spatial"):
-            make_train_step(spatial=spec, loss_cfg={term: {"enabled": True}})
+    for terms in (("adversarial",), ("perceptual",), ("adversarial", "perceptual")):
+        assert callable(make_train_step(spatial=spec,
+                                        loss_cfg={t: {"enabled": True} for t in terms}))
     with pytest.raises(TypeError, match="SpatialSpec"):
         make_train_step(spatial=True)
     # the adversarial and perceptual terms are ported (test_torch_adversarial.py and

@@ -1,5 +1,5 @@
-"""The port's utility API, flow visualization and legacy event helpers
-against the JAX package's, on the CPU.
+"""The port's utility API, flow visualization, event visualizers and legacy
+event helpers against the JAX package's, on the CPU.
 
 numpy results are compared exactly; ``normalize_event_tensor`` (a float
 reduction in either framework) at rtol 1e-6; PNG trees by their decoded
@@ -16,12 +16,14 @@ import torch
 
 from ebfi_tpu.data import legacy_util as jlegacy
 from ebfi_tpu.utils import flow_vis as jflow
+from ebfi_tpu.utils import vis as jvis
 from ebfi_tpu import utils as jutils
 from ebfi_tpu_torch import utils as tutils
 from ebfi_tpu_torch.data import legacy_util as tlegacy
 from ebfi_tpu_torch.utils import flow_vis as tflow
 from ebfi_tpu_torch.utils.profiling import trace
 from ebfi_tpu_torch.utils.timers import _timers
+from ebfi_tpu_torch.utils import vis as tvis
 from ebfi_tpu_torch.utils.vis import read_png
 import torch_threads  # noqa: F401  (one intra-op thread per test process)
 
@@ -111,6 +113,26 @@ def test_flow_visualization_matches_jax(tmp_path, rng):
             np.testing.assert_array_equal(read_png(str(port / sub / n)),
                                           read_png(str(ref / sub / n)), err_msg=f"{sub}/{n}")
     assert (port / "timestamps.txt").read_text() == (ref / "timestamps.txt").read_text()
+
+
+@pytest.mark.parametrize("tb", [16, 6, 5])
+def test_event_stack_visualizers_match_jax(tmp_path, rng, monkeypatch, tb):
+    """``stack_to_cnt`` exactly, and ``save_event_stack_grid``'s PNG against
+    the canvas the JAX writer hands its ``save_frame`` (captured, not
+    written): 16 bins tile 4 x 4, 6 tile 2 x 3, 5 tile 1 x 5."""
+    H, W = 9, 13
+    stack = np.abs(rng.standard_normal((H, W, 2 * tb)) * 8).astype(np.float32)
+    stack[:3] = 0.0
+    np.testing.assert_array_equal(tvis.stack_to_cnt(stack), jvis.stack_to_cnt(stack))
+    captured = []
+    monkeypatch.setattr(jvis, "save_frame", lambda frame, path: captured.append(frame))
+    jvis.save_event_stack_grid(stack, str(tmp_path / "jax.png"), vmax=6.0)
+    tvis.save_event_stack_grid(stack, str(tmp_path / "port.png"), vmax=6.0)
+    (want,) = captured
+    got = read_png(str(tmp_path / "port.png"))
+    assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(got)) > 2
 
 
 @pytest.mark.parametrize("noise", [0.0, 0.3])
