@@ -138,7 +138,20 @@ seconds elapsed:
    and unsharded; then f32 with both terms on four gloo ranks (2 x 2: two
    data shards of 4 items, so the discriminator's BN statistics, its
    gradients' mean and the shards' items span the data axis), the mean
-   of the ranks' metrics against the unsharded step's, as above.
+   of the ranks' metrics against the unsharded step's, as above;
+12. a real recording's way in: (a) a DAVIS346-shaped recording (260x346,
+   9 grey APS frames with per-frame exposures, over 10^6 events from
+   ``data.synth.simulate_events``) from the seed, written as a ROS bag (bz2
+   chunks) and as an events ``.npz`` with PNG frames; (b) both through
+   ``python -m ebfi_tpu_torch.data.ingest`` (``bag``, the exposures by
+   ``set-array``; ``events``), the clips equal array for array, host
+   seconds and events/s; (c) the infer CLI with ``scripts/infer.sh``'s
+   RealBlur-DAVIS flags (``--real_blur``, 256 timestamps per blurry
+   frame) in f32 (B1) and bf16 (B2 on ``wgmma_bf16``): frames, wall
+   seconds, frames/s, host and device ms per blurry frame, launches; (d)
+   B1 and B2 against their plain versions at this path's shapes, and the
+   card against the CPU on the first blurry frame at 16 timestamps; (e)
+   the stack and cloud movies, their ms and bytes.
 
 The line before the last is a JSON object with the kernels' numbers
 (``launches_train``: B1's launches in run (a), validation forwards
@@ -151,7 +164,8 @@ B1's in phase 10 (b), 0 for the others; ``f32_route``: B2, B2p and
 B3's f32 numbers from phase 3, with their launches in phase 4 (d);
 ``launches_spatial``: each kernel's launches on rank 0 in each of phase
 11 (b)'s runs; the row ``B1_fac_band``: B1's band mode, phase 11 (a)'s
-f32 numbers, its launches those of phase 11 (b)); the last line is ``{"ok": true,
+f32 numbers, its launches those of phase 11 (b); ``launches_real``: each
+kernel's launches in phase 12 (c)'s f32 and bf16 runs); the last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises and
 the run exits non-zero; without a CUDA card it exits 2 and prints no
 result.
@@ -670,7 +684,7 @@ SMALL_CFG = {  # FrameBasech 8: Modification cannot take the fused kernels
 }
 
 
-def run_cli(cli, kern, torch, ckpt, clip, out, extra=()):
+def run_cli(cli, kern, torch, ckpt, clip, out, extra=(), flags=CLI_FLAGS):
     """cli.main in this process with launch counts zeroed just before and
     read just after; returns (summary, wall s, launches, routes)."""
     datalist = out + ".txt"
@@ -680,7 +694,7 @@ def run_cli(cli, kern, torch, ckpt, clip, out, extra=()):
     kern.reset_launch_counts()
     t0 = time.perf_counter()
     summary = cli.main(["--model_path", ckpt, "--data_list", datalist, "--output_path", out,
-                        *CLI_FLAGS, *extra])
+                        *flags, *extra])
     wall = time.perf_counter() - t0
     return summary, wall, kern.launch_counts(), kern.route_counts()
 
@@ -2305,12 +2319,12 @@ def library_card_vs_cpu(torch):
             checks[name] = _rel_err(copy.deepcopy(m).cuda()(inp.cuda()), m(inp))
         for cell_t in (lib.ConvLSTMCell, lib.ConvGRUCell):
             cell = cell_t(16, 8)
-            carry = cell_t.init_carry(2, 32, 32, 8)
+            carry = cell_t.init_carry(2, 32, 32, 8, device="cpu")
             _, y = cell(carry, img)
             carry_c = cell_t.init_carry(2, 32, 32, 8, device="cuda")
             checks[cell_t.__name__] = _rel_err(copy.deepcopy(cell).cuda()(carry_c, img.cuda())[1], y)
         rec = lib.RecurrentConvLayer(16, 8)
-        carry = lib.ConvLSTMCell.init_carry(2, 16, 16, 8)
+        carry = lib.ConvLSTMCell.init_carry(2, 16, 16, 8, device="cpu")
         _, y = rec(carry, img)
         carry_c = lib.ConvLSTMCell.init_carry(2, 16, 16, 8, device="cuda")
         checks["RecurrentConvLayer"] = _rel_err(copy.deepcopy(rec).cuda()(carry_c, img.cuda())[1], y)
@@ -2967,6 +2981,263 @@ def phase_spatial(torch, kern):
     return band, runs
 
 
+# ---------------------------------------------------------------------- real recording
+
+REC_HW = (260, 346)  # DAVIS346: APS frames and events at 260 x 346
+REC_FRAMES = 9  # the last frame closes the 8th period: 8 blurry frames on the real-blur CLI
+REC_PERIOD_NS = 40_000_000  # 25 APS frames/s
+REC_EPOCH_NS = 1_600_000_000 * 10**9  # ROS time of the first frame
+REC_PACKETS = 4  # event messages per frame interval
+REC_SPEED, REC_THRESHOLD = 16.0, 0.15  # pattern shift per frame, contrast threshold: >= 1e6 events
+REC_MIN_EVENTS = 10**6
+REAL_INTERP = 256  # scripts/infer.sh's --interp_num
+REAL_BLUR_FLAGS = [  # scripts/infer.sh's RealBlur-DAVIS recipe as written
+    "--scale", "2", "--ori_scale", "down2", "--time_bins", "16", "--interp_num",
+    str(REAL_INTERP), "--num_period_per_seq", "2", "--sliding_window_seq", "2",
+    "--num_period_per_load", "1", "--sliding_window_load", "1", "--noise_enabled", "--real_blur",
+]
+REAL_CPU_TIMESTAMPS = 16  # (d): the card against the CPU on this many of the 256
+REAL_MOVIE_WINDOWS = 4  # (e): the cloud movie's frame intervals
+
+
+def synth_recording(tmp):
+    """12 (a): a DAVIS346-shaped recording from the seed, grey APS frames of
+    a moving pattern with per-frame exposures and the events
+    ``data.synth.simulate_events`` fires over them, written two ways: a
+    ROS bag (``/dvs/image_raw`` mono8, ``/dvs/events`` in REC_PACKETS
+    messages per frame interval, bz2 chunks) and an events ``.npz`` (x, y,
+    t, p) with PNG frames, a timestamp file and an exposure file (``begin
+    end`` per frame, the bag route's zeroed time base)."""
+    from ebfi_tpu_torch.data import rosbag as rb
+    from ebfi_tpu_torch.data.synth import render_frames, simulate_events
+    from ebfi_tpu_torch.utils.vis import save_frame
+
+    h, w = REC_HW
+    rng = np.random.default_rng(SEED + 12)
+    rgb = render_frames(REC_FRAMES, h, w, seed=SEED + 12, speed=REC_SPEED)
+    grey = np.round(rgb.astype(np.float64).mean(-1)).astype(np.uint8)
+    rel = np.arange(REC_FRAMES) * (REC_PERIOD_NS / 1e9)
+    (xs, ys, ts, ps), _ = simulate_events(grey[..., None], rel, REC_THRESHOLD, seed=SEED + 12)
+    ev_ns = REC_EPOCH_NS + np.round(ts * 1e9).astype(np.int64)
+    img_ns = REC_EPOCH_NS + np.arange(REC_FRAMES, dtype=np.int64) * REC_PERIOD_NS
+    secs, nsecs = ev_ns // 10**9, ev_ns % 10**9
+    stamp = lambda ns: rb.Time(int(ns // 10**9), int(ns % 10**9))
+    # the times as the bag route reads them (zero_timestamps: from the first frame)
+    first = rb.timestamp_float(stamp(img_ns[0]))
+    ev_t = secs.astype(np.float64) + nsecs.astype(np.float64) / float(1e9) - first
+    img_t = np.array([rb.timestamp_float(stamp(n)) - first for n in img_ns])
+    duty = rng.uniform(0.3, 0.7, REC_FRAMES)
+    exposure = np.stack([img_t, img_t + duty * (REC_PERIOD_NS / 1e9)], axis=1)
+
+    messages = [(0, int(n), "/dvs/image_raw", rb.Image.from_array(
+        rb.Header(i, stamp(n), "davis"), grey[i], "mono8")) for i, n in enumerate(img_ns)]
+    edges = REC_EPOCH_NS + np.arange(1, (REC_FRAMES - 1) * REC_PACKETS) * (
+        REC_PERIOD_NS // REC_PACKETS)
+    for k, (a, b) in enumerate(zip(np.r_[0, np.searchsorted(ev_ns, edges)],
+                                   np.r_[np.searchsorted(ev_ns, edges), len(ev_ns)])):
+        if b > a:
+            msg = rb.EventArray.from_arrays(rb.Header(k, stamp(ev_ns[a]), "davis"), h, w,
+                                            xs[a:b], ys[a:b], secs[a:b], nsecs[a:b], ps[a:b] > 0)
+            messages.append((1, int(ev_ns[b - 1]), "/dvs/events", msg))
+    messages.sort(key=lambda m: (m[1], m[0]))  # by record time; a frame before events at a tie
+    paths = {k: os.path.join(tmp, v) for k, v in (
+        ("bag", "davis346.bag"), ("events", "events.npz"), ("frames", "frames"),
+        ("timestamps", "timestamps.txt"), ("exposures", "exposures.txt"))}
+    rb.write_bag(paths["bag"], [(topic, m, stamp(t)) for _, t, topic, m in messages],
+                 compression="bz2")
+    np.savez(paths["events"], x=xs.astype(np.uint16), y=ys.astype(np.uint16), t=ev_t,
+             p=(ps > 0).astype(np.uint8))
+    os.makedirs(paths["frames"])
+    for i in range(REC_FRAMES):
+        save_frame(grey[i], os.path.join(paths["frames"], f"{i:06d}.png"))
+    np.savetxt(paths["timestamps"], img_t)
+    np.savetxt(paths["exposures"], exposure)
+    return paths, {"events": len(xs), "frames": grey, "ev": (xs, ys, ev_t, ps), "img_t": img_t}
+
+
+def real_blur_loader_window(clip, cli):
+    """The first window of the real-blur CLI's loader on the clip."""
+    from ebfi_tpu_torch.data.dataloader import EBFIDataLoader
+
+    random.seed(123)
+    np.random.seed(123)
+    cfg = cli.apply_flag_overrides(cli.default_dataloader_config(), cli.get_flags(
+        ["--output_path", "unused", *REAL_BLUR_FLAGS]))
+    loader = EBFIDataLoader(clip, cfg["dataset"], real_data=True)
+    windows = iter(loader)
+    try:
+        return next(windows)
+    finally:
+        windows.close()
+
+
+def phase_real_recording(torch, kern):
+    """Phase 12: a real-recording's way in, the real-blur CLI and the
+    renderers.  (a) :func:`synth_recording`; (b) both ingest routes of
+    ``python -m ebfi_tpu_torch.data.ingest`` (``bag`` with
+    ``--zero_timestamps``, the exposures through ``set-array``; ``events``
+    with ``--exposures``), equal clips array for array, host seconds and
+    events/s; (c) the infer CLI with ``scripts/infer.sh``'s RealBlur-DAVIS
+    flags in f32 (unhoisted: B1) and bf16 (hoisted: B2 on wgmma_bf16),
+    blurry frames x 256 restored frames, no GT frame, wall seconds, frames/s
+    and host and device ms per blurry frame, launches by kernel and route
+    (counts zeroed just before each run); (d) B1 and B2 against their plain
+    versions at this path's shapes (TOL_REL), the card against the CPU on
+    the first blurry frame at 16 of its 256 timestamps (f32, 1e-3 as phase
+    4); (e) the stack movie of the first window's bins and the cloud movie
+    of the first frame intervals with the APS frames beneath, their ms and
+    bytes.  Returns the launches of (c)'s runs."""
+    from ebfi_tpu_torch.data import ingest
+    from ebfi_tpu_torch.infer import InferenceEngine, cli
+    from ebfi_tpu_torch.models import build_model, init_weights
+    from ebfi_tpu_torch.utils.checkpoint import save_checkpoint
+    from ebfi_tpu_torch.utils.vis import save_event_cloud_movie, save_event_stack_movie
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ebfi_chip_real_")
+    out = {}
+    try:
+        # ---- (a) the recording
+        t0 = time.perf_counter()
+        paths, rec = synth_recording(tmp)
+        h, w = REC_HW
+        log(f"real (a): synthetic DAVIS346 recording {h}x{w}: {REC_FRAMES} grey APS frames at "
+            f"{1e9 / REC_PERIOD_NS:.0f} frames/s with exposures, {rec['events']} events "
+            f"(simulate_events, threshold {REC_THRESHOLD}); bag "
+            f"{os.path.getsize(paths['bag']) / 2**20:.1f} MiB (bz2 chunks), events npz "
+            f"{os.path.getsize(paths['events']) / 2**20:.1f} MiB, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if rec["events"] < REC_MIN_EVENTS:
+            raise AssertionError(f"real (a): {rec['events']} events, fewer than {REC_MIN_EVENTS}")
+
+        # ---- (b) both ingest routes
+        clips = {"bag": os.path.join(tmp, "clips", "davis346.npz"),
+                 "events": os.path.join(tmp, "clips_events", "davis346.npz")}
+        t0 = time.perf_counter()
+        ingest.main(["bag", paths["bag"], "--output_dir", os.path.dirname(clips["bag"]),
+                     "--image_topic", "/dvs/image_raw", "--zero_timestamps"])
+        for name, col in (("exposure_begin_t", "0"), ("exposure_end_t", "1")):
+            ingest.main(["set-array", "--clip", clips["bag"], "--name", name, "--values",
+                         paths["exposures"], "--column", col])
+        seconds = {"bag": time.perf_counter() - t0}
+        os.makedirs(os.path.dirname(clips["events"]))
+        t0 = time.perf_counter()
+        ingest.main(["events", "--events", paths["events"], "--frames_dir", paths["frames"],
+                     "--timestamps", paths["timestamps"], "--exposures", paths["exposures"],
+                     "--output", clips["events"]])
+        seconds["events"] = time.perf_counter() - t0
+        with np.load(clips["bag"]) as a, np.load(clips["events"]) as b:
+            names = sorted(a.files)
+            same = names == sorted(b.files) and all(
+                a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+                and a[k].tobytes() == b[k].tobytes() for k in names)
+            n_ori = len(a["ori_ts"])
+        for route, sec in seconds.items():
+            log(f"real (b) ingest {route}: {sec:.2f} s host, {n_ori / sec:.0f} events/s; host "
+                f"{host_cpu()}")
+        ok = same and n_ori == rec["events"] and "exposure_begin_t" in names
+        log(f"check real (b): the bag route (exposures through set-array) and the events route "
+            f"give equal clips, array for array ({len(names)} arrays, {n_ori} events) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("real (b): the two ingest routes disagree")
+        clip = clips["bag"]
+
+        # ---- (c) the real-blur CLI, f32 and bf16
+        model = init_weights(build_model(MODEL_CFG), SEED)
+        ckpt = os.path.join(tmp, "model.pt")
+        save_checkpoint(ckpt, model, {"model": MODEL_CFG})
+        expect = {"f32": ("fac", None), "bf16": ("mod_fac_shared", "wgmma_bf16")}
+        for precision, (kernel, route) in expect.items():
+            o = os.path.join(tmp, f"out_{precision}")
+            torch.cuda.reset_peak_memory_stats()
+            summary, wall, counts, routes = run_cli(cli, kern, torch, ckpt, clip, o,
+                                                    ["--precision", precision],
+                                                    flags=REAL_BLUR_FLAGS)
+            band = kern.band_launch_counts()
+            stats = summary["timings"]
+            img = os.path.join(o, os.path.basename(clip), "img")
+            n_restored = len(os.listdir(os.path.join(img, "restored_frame")))
+            n_gt = len(os.listdir(os.path.join(img, "gt_frame")))
+            n_blurry = len(stats)
+            others = {k: v for k, v in counts.items() if k != kernel}
+            ok = (n_blurry == REC_FRAMES - 1 and n_restored == n_blurry * REAL_INTERP
+                  and n_gt == 0 and counts[kernel] > 0 and not any(others.values())
+                  and not any(band.values())
+                  and (route is None or (routes[kernel][route] == counts[kernel])))
+            mean = lambda key: sum(st[key] for st in stats) / n_blurry
+            log(f"real (c) CLI {precision}: {n_blurry} blurry frames, {n_restored} restored frames "
+                f"in {wall:.2f} s wall, {n_restored / wall:.2f} restored frames/s end to end; per "
+                f"blurry frame: host fetch {mean('fetch_ms'):.1f} ms, device "
+                f"{mean('device_ms'):.1f} ms, host waiting {mean('sync_ms'):.1f} ms, emit "
+                f"{mean('emit_ms'):.1f} ms, CLI wall {mean('wall_ms'):.1f} ms; launches {counts}; "
+                f"routes {routes}; max_memory_allocated "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; host {host_cpu()}")
+            log(f"check real (c) {precision}: {REAL_INTERP} restored frames per blurry frame, no "
+                f"GT frame, {kernel}{'' if route is None else ' on ' + route} launched and no "
+                f"other FAC kernel {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"real (c): the {precision} real-blur CLI run did not go as "
+                                     "expected")
+            packed = kern.modification_fac_fused_shared.launches_packed
+            out[precision] = {"B1_fac": counts["fac"], "B3_mod_fac": counts["mod_fac"],
+                              "B2_mod_fac_shared": counts["mod_fac_shared"] - packed,
+                              "B2p_mod_fac_shared_packed": packed, "B1_fac_band": band["fac_band"]}
+            shutil.rmtree(o)
+        torch.cuda.empty_cache()
+
+        # ---- (d) the kernels at this path's shapes, the card against the CPU
+        window = real_blur_loader_window(clip, cli)
+        hp, wp = (-(-s // 8) * 8 for s in window["blurry"].shape[3:5])  # the engine's padding
+        cases = kernel_cases(torch, kern)
+        for name, (B, n, dt) in (("B1_fac", (16, 1, torch.float32)),
+                                 ("B2_mod_fac_shared", (1, 16, torch.bfloat16))):
+            args = cases[name]["args"](B, hp, wp, dt, n)
+            compare(torch, cases[name], args, f"real (d) {name} {str(dt)[6:]} B={B} N={n} "
+                                              f"{hp}x{wp}x{C} K={K} (the real-blur path's shape)")
+            del args
+        torch.cuda.empty_cache()
+        frame, event = window["blurry"][:, 0, 0], window["events"][:, 0]
+        ts = window["relative_ts"][:, 0, 0][:, :: REAL_INTERP // REAL_CPU_TIMESTAMPS]
+        gt_ex = window["exposure"][:, 0, 0]
+        got = InferenceEngine(model, precision="f32").interpolate(
+            frame, event, ts, gt_ex, outputs="final")[1].cpu()
+        want = InferenceEngine(model, precision="f32", device="cpu").interpolate(
+            frame, event, ts, gt_ex, outputs="final")[1]
+        err = (got - want).abs().max().item()
+        ok = err <= 1e-3 and bool(torch.isfinite(got).all())
+        log(f"check real (d) card vs CPU f32, first blurry frame {tuple(frame.shape[1:3])}, "
+            f"{ts.shape[1]} of its {REAL_INTERP} timestamps: max_abs={err:.2e} (tol 1e-3) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("real (d): the card and the CPU disagree")
+
+        # ---- (e) the renderers
+        t0 = time.perf_counter()
+        stack_gif = os.path.join(tmp, "stack.gif")
+        save_event_stack_movie(window["events"][0], stack_gif)
+        stack_ms = 1e3 * (time.perf_counter() - t0)
+        xs, ys, ev_t, ps = rec["ev"]
+        cuts = np.searchsorted(ev_t, rec["img_t"][: REAL_MOVIE_WINDOWS + 1])
+        windows = [(xs[a:b], ys[a:b], ev_t[a:b], ps[a:b]) for a, b in zip(cuts[:-1], cuts[1:])]
+        t0 = time.perf_counter()
+        cloud_gif = os.path.join(tmp, "cloud.gif")
+        save_event_cloud_movie(windows, cloud_gif, frames_panel=rec["frames"][:REAL_MOVIE_WINDOWS])
+        cloud_ms = 1e3 * (time.perf_counter() - t0)
+        sizes = {p: os.path.getsize(p) for p in (stack_gif, cloud_gif)}
+        log(f"real (e) stack movie ({window['events'].shape[-1] // 2 * window['events'].shape[1]}"
+            f" frames) {stack_ms:.0f} ms, {sizes[stack_gif]} bytes; cloud movie "
+            f"({len(windows)} windows of {min(len(w[0]) for w in windows)}+ events, at most 20000 "
+            f"points each) {cloud_ms:.0f} ms, {sizes[cloud_gif]} bytes; host {host_cpu()}")
+        if not all(n > 0 for n in sizes.values()):
+            raise AssertionError("real (e): a movie is empty")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    took = time.perf_counter() - t_phase
+    log(f"phase 12 took {took:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -3036,6 +3307,8 @@ def main() -> int:
     serving = phase_serving_options(torch, kern)
     torch.cuda.empty_cache()
     band, spatial = phase_spatial(torch, kern)
+    torch.cuda.empty_cache()
+    real = phase_real_recording(torch, kern)
     sp_launches = {label: r["ranks"][0] for label, r in spatial.items()}  # rank 0's, per run
     kernels = []
     for name, r in results.items():
@@ -3054,6 +3327,7 @@ def main() -> int:
             "f32_route": r.get("f32_route"),
             "launches_spatial": {label: n[KERNEL_COUNTER[name]]
                                  for label, n in sp_launches.items()},
+            "launches_real": {precision: n[name] for precision, n in real.items()},
         })
     b = band["float32"]
     kernels.append({
@@ -3066,6 +3340,7 @@ def main() -> int:
         "dtype": "float32", "shape": b["shape"], "whole_image_ms": b["whole_image_ms"],
         "whole_image_max_abs_diff": b["whole_image_max_abs_diff"], "bfloat16": band["bfloat16"],
         "launches_spatial": {label: n["fac_band"] for label, n in sp_launches.items()},
+        "launches_real": {precision: n["B1_fac_band"] for precision, n in real.items()},
     })
     faulthandler.cancel_dump_traceback_later()
     print(identity, flush=True)

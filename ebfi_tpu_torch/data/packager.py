@@ -9,11 +9,13 @@ does, each event group ``down{s}`` holds the same events with their
 coordinates integer-divided by ``s`` (events collapse onto the coarser
 grid), and ``{p}_event_idx`` is the index of each image's first event at
 or after its timestamp (a left ``searchsorted``, :204-226).  Images are
-stored as given (BGR, as the H5 stores them).
+stored as given (BGR, as the H5 stores them).  Per-image exposures, where
+given, become ``exposure_begin_t`` and ``exposure_end_t`` (the real-blur
+reader's shutter times; the JAX package stores them as image attributes).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -29,9 +31,11 @@ def package_sequence(
     events: Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray],
     sensor_resolution: Tuple[int, int],
     scales: Sequence[str] = ("ori", "down2", "down4", "down8"),
+    exposures: Optional[Sequence[Tuple[float, float]]] = None,
 ) -> None:
     """Frames (N, H, W, 3) uint8 BGR, their timestamps and the events
-    (xs, ys, ts, ps) -> one ``.npz`` clip at ``path``."""
+    (xs, ys, ts, ps) -> one ``.npz`` clip at ``path``; ``exposures``: one
+    (begin, end) shutter time per frame, or None."""
     xs, ys, ts, ps = events
     image_ts = np.asarray(timestamps, np.float64)
     arrays = {
@@ -49,4 +53,10 @@ def package_sequence(
         arrays[f"{p}_ts"] = ets
         arrays[f"{p}_ps"] = ps.astype(np.int8)
         arrays[f"{p}_event_idx"] = idx
+    if exposures is not None:
+        exp = np.asarray([tuple(e) for e in exposures], np.float64).reshape(-1, 2)
+        if len(exp) != len(image_ts):
+            raise ValueError(f"{len(exp)} exposures for {len(image_ts)} frames")
+        arrays["exposure_begin_t"] = np.ascontiguousarray(exp[:, 0])
+        arrays["exposure_end_t"] = np.ascontiguousarray(exp[:, 1])
     np.savez(path, **arrays)

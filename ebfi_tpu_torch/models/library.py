@@ -32,6 +32,14 @@ def _same_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return conv2d_nhwc(x, conv.weight, conv.bias, padding=conv.padding[0])
 
 
+def _carry_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("init_carry: no CUDA device is available; pass device='cpu' for a "
+                           "carry on the CPU")
+    return device
+
+
 class ResidualBlock(nn.Module):
     """conv-act-conv + skip (submodules.py ResidualBlock).  Its ConvLayers
     run as the JAX block calls them, without ``train``: a BN norm uses its
@@ -103,8 +111,11 @@ class ConvLSTMCell(nn.Module):
         return (h_new, c_new), h_new
 
     @staticmethod
-    def init_carry(batch, height, width, features, dtype=torch.float32, device="cpu"):
-        z = torch.zeros((batch, height, width, features), dtype=dtype, device=device)
+    def init_carry(batch, height, width, features, dtype=torch.float32, device="cuda"):
+        """Zero (h, c), each (batch, height, width, features), on the card
+        unless ``device`` says otherwise; without a card it raises."""
+        z = torch.zeros((batch, height, width, features), dtype=dtype,
+                        device=_carry_device(device))
         return (z, z)
 
 
@@ -127,8 +138,11 @@ class ConvGRUCell(nn.Module):
         return h_new, h_new
 
     @staticmethod
-    def init_carry(batch, height, width, features, dtype=torch.float32, device="cpu"):
-        return torch.zeros((batch, height, width, features), dtype=dtype, device=device)
+    def init_carry(batch, height, width, features, dtype=torch.float32, device="cuda"):
+        """Zero h, (batch, height, width, features), on the card unless
+        ``device`` says otherwise; without a card it raises."""
+        return torch.zeros((batch, height, width, features), dtype=dtype,
+                           device=_carry_device(device))
 
 
 class RecurrentConvLayer(nn.Module):

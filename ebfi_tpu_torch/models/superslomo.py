@@ -217,13 +217,18 @@ class SuperSloMo:
 CHECKPOINT_METADATA_TYPES = [datetime.datetime]
 
 
-def load_checkpoint(path: str, device="cpu") -> SuperSloMo:
+def load_checkpoint(path: str, device="cuda") -> SuperSloMo:
     """The published ``SuperSloMo.ckpt`` (keys ``state_dictFC`` /
     ``state_dictAT``, upsampler.py:66-68), loaded as it is: the
     counterpart of the JAX package's ``convert_torch_checkpoint``.  It
     loads with ``weights_only=True``, allowing the training script's
     metadata types (:data:`CHECKPOINT_METADATA_TYPES`) and refusing any
-    other class."""
+    other class.  The model goes to the card unless ``device`` says
+    otherwise; without a card it raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("superslomo.load_checkpoint: no CUDA device is available; pass "
+                           "device='cpu' to load on the CPU")
     with torch.serialization.safe_globals(CHECKPOINT_METADATA_TYPES):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
     flow, interp = SloMoUNet(6, 4), SloMoUNet(20, 5)

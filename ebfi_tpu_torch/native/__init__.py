@@ -1,7 +1,9 @@
 """The loader's host data plane in C++ (``ebfi_host.cpp`` beside this file),
 bound with ``ctypes``: event stacks, blur synthesis and event timestamp
 normalisation, each bit for bit with its numpy plain version in
-:mod:`ebfi_tpu_torch.data.encodings`.
+:mod:`ebfi_tpu_torch.data.encodings`; and two byte codecs, the LZ4 frame
+decoder of ROS bags' lz4 chunks (:mod:`ebfi_tpu_torch.data.rosbag`) and the
+GIF LZW encoder of :mod:`ebfi_tpu_torch.utils.vis`'s movies.
 
 The library is built at first use with the host's C++ compiler (``$CXX``,
 else ``g++``) into ``ebfi_tpu_torch/_build/``, named by a hash of the
@@ -40,12 +42,22 @@ BUILD_TIMEOUT_S = 300
 _D = ctypes.POINTER(ctypes.c_double)
 _F = ctypes.POINTER(ctypes.c_float)
 _I64 = ctypes.c_int64
+_U8 = ctypes.POINTER(ctypes.c_uint8)
 SIGNATURES = {
     "ebfi_events_to_stack": [_D, _D, _D, _D, _I64, ctypes.c_int, _I64, _I64, _F],
     "ebfi_blurry_mean": [ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64), _I64,
                          _I64, _I64, _F],
     "ebfi_normalize_ts": [_D, _I64, _D],
+    "ebfi_lz4_frame_decode": [_U8, _I64, _U8, _I64],
+    "ebfi_xxh32": [_U8, _I64, ctypes.c_uint32],
+    "ebfi_gif_lzw": [_U8, _I64, ctypes.c_int, _U8, _I64],
 }
+RESTYPES = {"ebfi_lz4_frame_decode": ctypes.c_int64, "ebfi_xxh32": ctypes.c_uint32,
+            "ebfi_gif_lzw": ctypes.c_int64}
+LZ4_ERRORS = {-1: "truncated", -2: "not an LZ4 frame (bad magic number)",
+              -3: "an unsupported frame option (version, dictionary or block size)",
+              -4: "a checksum mismatch", -5: "more data than the expected size",
+              -6: "a match offset outside the decoded data"}
 
 
 def _compiler() -> str:
@@ -90,7 +102,7 @@ def load_library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = None
+        fn.restype = RESTYPES.get(name)
     return lib
 
 
@@ -153,3 +165,44 @@ def normalize_ts(ts) -> np.ndarray:
     load_library().ebfi_normalize_ts(_ptr(ts, ctypes.c_double), len(ts),
                                      _ptr(out, ctypes.c_double))
     return out
+
+
+def _bytes_ptr(data: bytes):
+    return ctypes.cast(ctypes.c_char_p(data), _U8)
+
+
+def lz4_frame_decode(data: bytes, size: int) -> bytes:
+    """The content of the LZ4 frame(s) in ``data``, which must be ``size``
+    bytes long; raises ValueError naming what is wrong with the frame."""
+    data = bytes(data)
+    out = np.empty(size, np.uint8)
+    got = load_library().ebfi_lz4_frame_decode(_bytes_ptr(data), len(data),
+                                                _ptr(out, ctypes.c_uint8), size)
+    if got < 0:
+        raise ValueError(f"LZ4 frame: {LZ4_ERRORS.get(got, f'error {got}')}")
+    if got != size:
+        raise ValueError(f"LZ4 frame: {got} bytes decoded, {size} expected")
+    return out.tobytes()
+
+
+def xxh32(data: bytes, seed: int = 0) -> int:
+    """xxHash32 of ``data``: the checksum LZ4 frames carry."""
+    data = bytes(data)
+    return load_library().ebfi_xxh32(_bytes_ptr(data), len(data), seed)
+
+
+def gif_lzw(indices: np.ndarray, min_code_size: int) -> bytes:
+    """The LZW code stream of one GIF image of palette ``indices`` (uint8,
+    each below ``2 ** min_code_size``), without the sub-block framing."""
+    idx = np.ascontiguousarray(indices, np.uint8).reshape(-1)
+    if not 2 <= min_code_size <= 8:
+        raise ValueError(f"GIF LZW minimum code size {min_code_size} outside 2..8")
+    if len(idx) and int(idx.max()) >= 1 << min_code_size:
+        raise ValueError(f"palette index {int(idx.max())} needs more than {min_code_size} bits")
+    cap = 2 * len(idx) + 64  # at most 12 bits a pixel, plus the clear codes
+    out = np.empty(cap, np.uint8)
+    got = load_library().ebfi_gif_lzw(_ptr(idx, ctypes.c_uint8), len(idx), min_code_size,
+                                       _ptr(out, ctypes.c_uint8), cap)
+    if got < 0:
+        raise RuntimeError("GIF LZW: the output buffer was too small")
+    return out[:got].tobytes()

@@ -16,7 +16,7 @@ import torch_threads  # noqa: F401  (one intra-op thread per test process)
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "ebfi_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ebfi_tpu", "h5py", "yaml", "cv2",
-             "matplotlib"}
+             "matplotlib", "PIL", "rosbag", "lz4"}
 
 
 def port_sources():
@@ -45,7 +45,8 @@ def test_no_forbidden_imports(path):
 def test_import_without_jax():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'ebfi_tpu', 'h5py', 'yaml', 'cv2', 'matplotlib'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'ebfi_tpu', 'h5py', 'yaml', 'cv2', 'matplotlib',\n"
+        "          'PIL', 'rosbag', 'lz4'):\n"
         "    sys.modules[m] = None\n"
         "import ebfi_tpu_torch, ebfi_tpu_torch.models, ebfi_tpu_torch.infer\n"
         "import ebfi_tpu_torch.ops.cuda, chip_smoke\n"
@@ -66,6 +67,7 @@ def test_import_without_jax():
         "import ebfi_tpu_torch.tools.export, ebfi_tpu_torch.utils.flow_vis\n"
         "import ebfi_tpu_torch.utils.profiling, ebfi_tpu_torch.data.legacy_util\n"
         "import ebfi_tpu_torch.data.datalist, ebfi_tpu_torch.data.resize\n"
+        "import ebfi_tpu_torch.data.rosbag, ebfi_tpu_torch.data.ingest\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'ebfi_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
     )
@@ -113,6 +115,27 @@ def test_engine_needs_a_card_unless_told_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(model)
     assert InferenceEngine(model, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["superslomo.load_checkpoint", "ConvLSTMCell.init_carry",
+                                   "ConvGRUCell.init_carry"])
+def test_entry_points_need_a_card_unless_told_cpu(monkeypatch, tmp_path, entry):
+    """C9: these default to the card and raise without one, as the engine
+    does; with device='cpu' they run on the CPU."""
+    from ebfi_tpu_torch.models import library, superslomo
+
+    if entry == "superslomo.load_checkpoint":
+        path = str(tmp_path / "SuperSloMo.ckpt")
+        nets = [superslomo.SloMoUNet(6, 4), superslomo.SloMoUNet(20, 5)]
+        superslomo.save_checkpoint(path, *(n.state_dict() for n in nets))
+        call = lambda **kw: superslomo.load_checkpoint(path, **kw).flow_net.conv1.weight
+    else:
+        cell = getattr(library, entry.split(".")[0])
+        call = lambda **kw: torch.as_tensor(cell.init_carry(1, 4, 4, 2, **kw)[0])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    assert call(device="cpu").device.type == "cpu"
 
 
 def test_cli_needs_a_card_unless_told_cpu(monkeypatch, tmp_path):

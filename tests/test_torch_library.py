@@ -238,7 +238,7 @@ def test_recurrent_cells_match_jax_over_a_sequence(cell):
     jcell = jlib.ConvLSTMCell(C) if cell == "convlstm" else jlib.ConvGRUCell(C)
     tcell = tlib.ConvLSTMCell(3, C) if cell == "convlstm" else tlib.ConvGRUCell(3, C)
     jcarry = type(jcell).init_carry(B, H, W, C)
-    tcarry = type(tcell).init_carry(B, H, W, C)
+    tcarry = type(tcell).init_carry(B, H, W, C, device="cpu")
     v = jcell.init(jax.random.key(0), jcarry, jnp.asarray(seq[0]))
     _load(tcell, v)
     for s in range(4):
@@ -252,7 +252,7 @@ def test_recurrent_cells_match_jax_over_a_sequence(cell):
     v = jrec.init(jax.random.key(1), j0, jnp.asarray(seq[0]))
     _load(trec, v)
     (jc, jy) = jrec.apply(v, j0, jnp.asarray(seq[0]))
-    (tc, ty) = trec(type(tcell).init_carry(B, H // 2, W // 2, C), _t(seq[0]))
+    (tc, ty) = trec(type(tcell).init_carry(B, H // 2, W // 2, C, device="cpu"), _t(seq[0]))
     _close(ty, jy, what="RecurrentConvLayer")
 
 

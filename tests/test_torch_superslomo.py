@@ -155,7 +155,7 @@ def test_checkpoint_round_trip_with_the_jax_converter(tmp_path):
     fsd, isd = superslomo_params_from_jax(p)
     path = str(tmp_path / "SuperSloMo.ckpt")
     tss.save_checkpoint(path, fsd, isd)
-    port = tss.load_checkpoint(path)
+    port = tss.load_checkpoint(path, device="cpu")
     back = jss.convert_torch_checkpoint(path)
     for which, net in (("flow", port.flow_net), ("interp", port.interp_net)):
         jl, tree = jax.tree.flatten(back[which])
@@ -193,9 +193,9 @@ def test_checkpoint_with_training_metadata_loads_and_other_classes_do_not(tmp_pa
     torch.save(_upstream_checkpoint(fsd, isd, **extra), path)
     if payload == "arbitrary_class":
         with pytest.raises(pickle.UnpicklingError, match="_Arbitrary"):
-            tss.load_checkpoint(path)
+            tss.load_checkpoint(path, device="cpu")
         return
-    port = tss.load_checkpoint(path)
+    port = tss.load_checkpoint(path, device="cpu")
     for sd, net in ((fsd, port.flow_net), (isd, port.interp_net)):
         got = net.state_dict()
         assert sorted(got) == sorted(sd)
