@@ -151,8 +151,22 @@ seconds elapsed:
    seconds, frames/s, host and device ms per blurry frame, launches; (d)
    B1 and B2 against their plain versions at this path's shapes, and the
    card against the CPU on the first blurry frame at 16 timestamps; (e)
-   the stack and cloud movies, their ms and bytes.
+   the stack and cloud movies, their ms and bytes;
+13. schema H5 clips without h5py (the port's HDF5 reader and writer): (a)
+   phase 5's 33-frame 720x1280 clip written as npz and, through
+   ``H5Packager`` with gzip, as H5, seconds and bytes of each; (b) items of
+   ``H5ClipDataset`` (that clip, the CLI's config), ``H5ClipDatasetFast``
+   (phase 6's clip, flips, crops, noise) and ``H5ClipDatasetReal`` (phase
+   12's DAVIS346 recording with exposures) on the H5 clips against the same
+   datasets on the npz clips, bit for bit, host ms per item (the H5
+   route's chunk decoding apart); (c) the infer CLI in bf16 on the npz clip
+   and on the H5 clip (cuDNN deterministic): restored PNGs byte for byte
+   and means equal, B2 once per blurry frame, each run's host fetch ms per
+   blurry frame; (d) 3 steps of phase 6's f32 training (B1) from an npz and
+   from an H5 datalist, losses equal.
 
+After the phases, a line gives the seconds each took ("seconds by
+phase"), so a change in the script's time can be put down to a phase.
 The line before the last is a JSON object with the kernels' numbers
 (``launches_train``: B1's launches in run (a), validation forwards
 included, and B3's in run (b); ``launches_dp_nccl``: the same in phase 7
@@ -165,13 +179,16 @@ B3's f32 numbers from phase 3, with their launches in phase 4 (d);
 ``launches_spatial``: each kernel's launches on rank 0 in each of phase
 11 (b)'s runs; the row ``B1_fac_band``: B1's band mode, phase 11 (a)'s
 f32 numbers, its launches those of phase 11 (b); ``launches_real``: each
-kernel's launches in phase 12 (c)'s f32 and bf16 runs); the last line is ``{"ok": true,
+kernel's launches in phase 12 (c)'s f32 and bf16 runs; ``launches_h5``: each
+kernel's launches in phase 13 (c)'s H5 CLI run and (d)'s H5 training run); the
+last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises and
 the run exits non-zero; without a CUDA card it exits 2 and prints no
 result.
 """
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import functools
 import json
@@ -2370,6 +2387,10 @@ EXPORT_CASES = (
 )
 EXPORT_TOL = 1e-6  # the program against the engine on the same requests, f32 outputs
 DATA_ITERS = 3
+SHORT_RUN = {  # train_config overrides: DATA_ITERS steps, each logged, no validation
+    "trainer;iteration_based_train;iterations": DATA_ITERS,
+    "trainer;iteration_based_train;train_log_step": 1,
+    "trainer;iteration_based_train;save_period": 1000, "trainer;do_validation": False}
 # phase 10 (c)'s clip: 128x128 crops of it, or all of it at half the size
 # (80x96, whose sides the loss's 5-level Laplacian pyramid divides)
 DATA_CLIP = (65, 160, 192)
@@ -2587,6 +2608,42 @@ def phase_norm_models(torch, kern):
     return total
 
 
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms (benchmark off) inside the block, so
+    that two runs on equal inputs compute equal outputs."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+@contextlib.contextmanager
+def recorded_losses(train_cli):
+    """``train_cli.make_train_step`` wrapped inside the block: every step's
+    ``train_loss`` is appended to the list it yields."""
+    make_step, losses = train_cli.make_train_step, []
+
+    def recording(*a, **k):
+        step = make_step(*a, **k)
+
+        def run(state, batch):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["train_loss"]))
+            return state, metrics
+
+        return run
+
+    train_cli.make_train_step = recording
+    try:
+        yield losses
+    finally:
+        train_cli.make_train_step = make_step
+
+
 def phase_data_options(torch, kern, tmp):
     """(c): DATA_ITERS steps of the train CLI (the shipped f32 model,
     ``configs/train_evfi.yml``) with ``fast``, and with NeedNeighborGT on a
@@ -2600,30 +2657,13 @@ def phase_data_options(torch, kern, tmp):
     clip = os.path.join(tmp, "clip.npz")
     frames, h, w = DATA_CLIP
     write_clip_npz(clip, num_frames=frames, H=h, W=w, seed=SEED + 3, down_scales=(2,))
-    base = {"trainer;iteration_based_train;iterations": DATA_ITERS,
-            "trainer;iteration_based_train;train_log_step": 1,
-            "trainer;iteration_based_train;save_period": 1000, "trainer;do_validation": False}
     rescale = {"train_dataloader;dataset;scale": 1}  # ori_scale down2: GT at half the size
     runs = [("plain", {}), ("fast", {"train_dataloader;fast": True}), ("rescaled", rescale),
             ("rescaled_neighbor", {**rescale, "train_dataloader;dataset;NeedNeighborGT": True})]
-    make_step, losses, out = train_cli.make_train_step, [], {}
-
-    def recording(*a, **k):
-        step = make_step(*a, **k)
-
-        def run(state, batch):
-            state, metrics = step(state, batch)
-            losses.append(float(metrics["train_loss"]))
-            return state, metrics
-
-        return run
-
-    deterministic, benchmark = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    train_cli.make_train_step = recording
-    try:
+    out = {}
+    with deterministic_cudnn(torch), recorded_losses(train_cli) as losses:
         for name, extra in runs:
-            cfg = train_config(tmp, name, clip, {**base, **extra})
+            cfg = train_config(tmp, name, clip, {**SHORT_RUN, **extra})
             losses.clear()
             trainer, counts, _, wall = train_run(torch, kern, f"(c) {name}", train_cli,
                                                  ["-c", cfg, "-id", name])
@@ -2633,9 +2673,6 @@ def phase_data_options(torch, kern, tmp):
                          "fast": isinstance(ds, NpzClipDatasetFast),
                          "shapes": {k: tuple(v.shape) for k, v in item.items()}}
             del trainer
-    finally:
-        train_cli.make_train_step = make_step
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic, benchmark
     for name, ref in (("fast", "plain"), ("rescaled_neighbor", "rescaled")):
         a, b = out[name], out[ref]
         nei = a["shapes"].get("neighbor")
@@ -3238,6 +3275,261 @@ def phase_real_recording(torch, kern):
     return out
 
 
+# ---------------------------------------------------------------------- H5 clips
+
+H5_ITEM_SEEDS = (SEED, SEED + 17)  # 13 (b): each item at these seeds
+
+
+def package_as_h5(npz, h5):
+    """An npz clip's frames, timestamps, events and exposures written again
+    as a schema H5 clip through ``H5Packager`` (gzip, h5py's chunk shapes):
+    the event groups are the npz's (each ``down{s}`` the ori events'
+    coordinates divided by s, as both packagers write them)."""
+    from ebfi_tpu_torch.data.clip_dataset import open_clip
+    from ebfi_tpu_torch.data.packager import SCALES, H5Packager
+
+    c = open_clip(npz)
+    scales = tuple(p for p in SCALES if f"{p}_xs" in c)
+    pk = H5Packager(h5, compression="gzip")
+    pk.set_metadata(tuple(int(v) for v in c["sensor_resolution"]))
+    for i in range(c["images"].shape[0]):
+        exposure = (c["exposure_begin_t"][i], c["exposure_end_t"][i]) \
+            if "exposure_begin_t" in c else None
+        pk.package_image(np.asarray(c["images"][i]), c["image_ts"][i], exposure)
+    pk.package_events(*(np.asarray(c[f"ori_{a}"]) for a in ("xs", "ys", "ts", "ps")), scales)
+    pk.h5.attrs["num_events"] = len(c["ori_xs"])
+    pk.add_event_indices(scales)
+    pk.close()
+
+
+def same_items(label, a, b):
+    """Items of two datasets, every array bit for bit (dtype, shape, bytes)."""
+    ok = a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and np.ascontiguousarray(a[k]).tobytes() == np.ascontiguousarray(b[k]).tobytes()
+        for k in a)
+    if not ok:
+        bad = [k for k in a if k not in b or not np.array_equal(a[k], b[k])]
+        raise AssertionError(f"h5 (b) {label}: the H5 item differs from the npz item in {bad}")
+
+
+def compare_datasets(label, cls, h5, npz, cfg, seeds):
+    """13 (b): every item of ``cls`` on the H5 clip against the npz clip at
+    each seed, bit for bit, and the host ms per item on each route, the H5
+    route's time in chunk decoding (its read, inflate and filters) apart."""
+    from ebfi_tpu_torch.data import hdf5
+
+    decode, decoding = hdf5.Dataset._decode, [0.0]
+
+    def timed_decode(self, k):
+        t0 = time.perf_counter()
+        try:
+            return decode(self, k)
+        finally:
+            decoding[0] += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ds_npz = cls(npz, cfg)
+    t_npz = time.perf_counter() - t0
+    hdf5.Dataset._decode = timed_decode
+    try:
+        t0 = time.perf_counter()
+        ds_h5 = cls(h5, cfg)
+        t_h5 = time.perf_counter() - t0
+        if len(ds_h5) != len(ds_npz) or not len(ds_h5):
+            raise AssertionError(f"h5 (b) {label}: {len(ds_h5)} items against {len(ds_npz)}")
+        n = 0
+        for seed in seeds:
+            for i in range(len(ds_h5)):
+                t0 = time.perf_counter()
+                a = ds_h5.get(i, seed=seed + i)
+                t_h5 += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                b = ds_npz.get(i, seed=seed + i)
+                t_npz += time.perf_counter() - t0
+                same_items(f"{label} item {i} seed {seed + i}", a, b)
+                n += 1
+    finally:
+        hdf5.Dataset._decode = decode
+    log(f"check h5 (b) {label}: {n} items ({len(ds_h5)} x {len(seeds)} seeds), every array bit "
+        f"for bit equal to the npz clip's ok; host ms per item (build included) H5 "
+        f"{1e3 * t_h5 / n:.1f} (of which chunk decoding {1e3 * decoding[0] / n:.1f}), npz "
+        f"{1e3 * t_npz / n:.1f}; host {host_cpu()}")
+
+
+def row_launches(kern, counts):
+    """Each row of the kernels line's launches in the run whose counts
+    ``counts`` are, read just after it: B2's without its packed launches,
+    B2p's and B1's band mode's from their own counters."""
+    packed = kern.modification_fac_fused_shared.launches_packed
+    return {"B1_fac": counts["fac"], "B3_mod_fac": counts["mod_fac"],
+            "B2_mod_fac_shared": counts["mod_fac_shared"] - packed,
+            "B2p_mod_fac_shared_packed": packed,
+            "B1_fac_band": kern.band_launch_counts()["fac_band"]}
+
+
+def h5_cli_runs(torch, kern, cli, ckpt, clips):
+    """13 (c): the infer CLI in bf16 on the npz clip, then on the H5 clip;
+    returns the H5 run's launches by row of the kernels line."""
+    runs = {}
+    for kind in ("npz", "h5"):
+        o = clips[kind] + ".out"
+        summary, wall, counts, routes = run_cli(cli, kern, torch, ckpt, clips[kind], o,
+                                                ["--precision", "bf16"])
+        rows = row_launches(kern, counts)
+        stats = summary["timings"]
+        pngs = restored_pngs(o, clips[kind])
+        runs[kind] = {"pngs": {n: open(p, "rb").read() for n, p in pngs.items()},
+                      "means": summary["means"], "rows": rows,
+                      "fetch": [st["fetch_ms"] for st in stats]}
+        ok = (len(stats) == 2 and len(pngs) == 2 * N
+              and rows == {"B1_fac": 0, "B3_mod_fac": 0, "B2_mod_fac_shared": 2,
+                           "B2p_mod_fac_shared_packed": 0, "B1_fac_band": 0}
+              and routes["mod_fac_shared"] == {"wgmma_bf16": 2, "wgmma_3xtf32": 0})
+        log(f"h5 (c) CLI bf16 on the {kind} clip: {len(stats)} blurry frames, {len(pngs)} "
+            f"restored frames in {wall:.2f} s wall; host fetch ms per blurry frame "
+            + ", ".join(f"{v:.1f}" for v in runs[kind]["fetch"])
+            + f" (mean {sum(runs[kind]['fetch']) / len(stats):.1f}); device ms "
+            + ", ".join(f"{st['device_ms']:.1f}" for st in stats)
+            + f"; launches {rows}; routes {routes}; host {host_cpu()}")
+        if not ok:
+            raise AssertionError(f"h5 (c): the CLI run on the {kind} clip did not go as expected")
+        shutil.rmtree(o)
+    a, b = runs["h5"], runs["npz"]
+    ok = a["pngs"] == b["pngs"] and a["means"] == b["means"]
+    log(f"check h5 (c): the H5 run's {len(a['pngs'])} restored PNGs byte for byte and its "
+        f"means {a['means']} equal to the npz run's {b['means']}; B2 launches "
+        f"{a['rows']['B2_mod_fac_shared']} (H5) and {b['rows']['B2_mod_fac_shared']} (npz) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("h5 (c): the CLI's outputs on the H5 clip differ from the npz's")
+    return a["rows"]
+
+
+def h5_train_runs(torch, kern, tmp, clips):
+    """13 (d): DATA_ITERS steps of phase 6's f32 training from an npz and
+    from an H5 datalist; returns the H5 run's launches by row of the kernels
+    line."""
+    from ebfi_tpu_torch.train import cli as train_cli
+
+    trained = {}
+    with recorded_losses(train_cli) as losses:
+        for kind in ("npz", "h5"):
+            cfg = train_config(tmp, f"h5_{kind}", clips[kind], SHORT_RUN)
+            losses.clear()
+            trainer, counts, _, wall = train_run(torch, kern, f"h5 (d) {kind}", train_cli,
+                                                 ["-c", cfg, "-id", f"h5_{kind}"])
+            trained[kind] = {"losses": list(losses), "rows": row_launches(kern, counts),
+                             "wall": wall}
+            del trainer
+    a, b = trained["h5"], trained["npz"]
+    ok = (len(a["losses"]) == DATA_ITERS and a["losses"] == b["losses"]
+          and all(np.isfinite(a["losses"]))
+          and a["rows"] == b["rows"] == {"B1_fac": DATA_ITERS, "B3_mod_fac": 0,
+                                         "B2_mod_fac_shared": 0, "B2p_mod_fac_shared_packed": 0,
+                                         "B1_fac_band": 0})
+    log(f"check h5 (d) f32 training from the H5 datalist: losses {a['losses']} vs the npz "
+        f"datalist's {b['losses']} (equal required); launches {a['rows']} (B1 once per "
+        f"step); run wall {a['wall']:.1f} vs {b['wall']:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("h5 (d): training from the H5 clip differs from the npz clip")
+    return a["rows"]
+
+
+def phase_h5_clips(torch, kern):
+    """Phase 13: schema H5 clips on the card machine, read and written by the
+    port's own HDF5 code (no h5py).  (a) phase 5's 33-frame 720x1280 clip
+    written as npz (``write_clip_npz``, the synthesis included) and again
+    as H5 through ``H5Packager`` with gzip, seconds and bytes of each; (b)
+    items of the H5 datasets against the same datasets on the npz clip, bit
+    for bit: ``H5ClipDataset`` on (a)'s clip with the CLI's config (noise
+    on) at two seeds, ``H5ClipDatasetFast`` on phase 6's 65-frame 144x176
+    clip with flips, crops and noise at three seeds, ``H5ClipDatasetReal``
+    on phase 12's DAVIS346 recording (ingested from its events npz, then
+    packaged as H5 with its exposures) with the RealBlur-DAVIS config; (c)
+    the infer CLI in bf16 on (a)'s clip as npz, then as H5 (2 blurry frames
+    x 16 timestamps, the shipped model, cuDNN deterministic): restored PNGs
+    byte for byte and means equal, B2 once per blurry frame on wgmma_bf16
+    in each run, each run's host fetch ms per blurry frame; (d) 3 steps of
+    phase 6's f32 training (batch 8, 128x128, B1) from an npz and from an
+    H5 datalist: equal losses, B1's launches.  Returns the launches of (c)'s
+    and (d)'s H5 runs."""
+    from ebfi_tpu_torch.data import ingest
+    from ebfi_tpu_torch.data.clip_dataset import (H5ClipDataset, H5ClipDatasetFast,
+                                                  H5ClipDatasetReal)
+    from ebfi_tpu_torch.data.hdf5 import File
+    from ebfi_tpu_torch.data.synth import write_clip_npz
+    from ebfi_tpu_torch.infer import cli
+    from ebfi_tpu_torch.models import build_model, init_weights
+    from ebfi_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ebfi_chip_h5_")
+    out = {}
+    try:
+        # ---- (a) phase 5's clip, npz and H5
+        clips = {"npz": os.path.join(tmp, "clip720.npz"), "h5": os.path.join(tmp, "clip720.h5")}
+        t0 = time.perf_counter()
+        n_events = write_clip_npz(clips["npz"], num_frames=CLIP_FRAMES, H=H, W=W, seed=SEED)
+        t_npz = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        package_as_h5(clips["npz"], clips["h5"])
+        t_h5 = time.perf_counter() - t0
+        f = File(clips["h5"])
+        frame, xs = f["ori_images/image000000000"], f["ori_events/xs"]
+        log(f"h5 (a): phase 5's {CLIP_FRAMES}-frame {H}x{W} clip, {n_events} events: npz "
+            f"(synthesis and np.savez) {t_npz:.1f} s, {os.path.getsize(clips['npz'])} bytes; H5 "
+            f"through H5Packager (gzip 4, from the npz's arrays) {t_h5:.1f} s, "
+            f"{os.path.getsize(clips['h5'])} bytes; frame chunks {frame.chunks} "
+            f"({frame.n_chunks} a frame), xs chunks {xs.chunks} ({xs.n_chunks}); host {host_cpu()}")
+
+        # ---- (b) items, H5 against npz
+        cfg = cli.apply_flag_overrides(cli.default_dataloader_config(), cli.get_flags(
+            ["--output_path", "unused", *CLI_FLAGS]))["dataset"]
+        compare_datasets(f"H5ClipDataset {H}x{W}, the CLI's config", H5ClipDataset,
+                         clips["h5"], clips["npz"], cfg, H5_ITEM_SEEDS)
+        small = {"npz": os.path.join(tmp, "train.npz"), "h5": os.path.join(tmp, "train.h5")}
+        frames, h, w = TRAIN_CLIP
+        write_clip_npz(small["npz"], num_frames=frames, H=h, W=w, seed=SEED + 3)
+        package_as_h5(small["npz"], small["h5"])
+        fast_cfg = json.loads(json.dumps(cfg))
+        aug = fast_cfg["data_augment"]
+        aug["flip"]["enabled"] = aug["random_crop"]["enabled"] = True
+        aug["random_crop"]["size"] = [128, 128]
+        compare_datasets(f"H5ClipDatasetFast {h}x{w}, flips, crops and noise",
+                         H5ClipDatasetFast, small["h5"], small["npz"], fast_cfg,
+                         (SEED, SEED + 1, SEED + 2))
+        paths, rec = synth_recording(tmp)
+        real = {"npz": os.path.join(tmp, "davis346.npz"), "h5": os.path.join(tmp, "davis346.h5")}
+        ingest.main(["events", "--events", paths["events"], "--frames_dir", paths["frames"],
+                     "--timestamps", paths["timestamps"], "--exposures", paths["exposures"],
+                     "--output", real["npz"]])
+        t0 = time.perf_counter()
+        package_as_h5(real["npz"], real["h5"])
+        groups = [k for k in File(real["h5"]).keys() if k.endswith("_events")]
+        log(f"h5 (b) the DAVIS346 recording ({rec['events']} events, event groups {groups}, "
+            f"exposures) packaged as H5 in {time.perf_counter() - t0:.1f} s, "
+            f"{os.path.getsize(real['h5'])} bytes")
+        real_cfg = cli.apply_flag_overrides(cli.default_dataloader_config(), cli.get_flags(
+            ["--output_path", "unused", *REAL_BLUR_FLAGS]))["dataset"]
+        compare_datasets("H5ClipDatasetReal DAVIS346, the RealBlur-DAVIS config",
+                         H5ClipDatasetReal, real["h5"], real["npz"], real_cfg, H5_ITEM_SEEDS)
+
+        # ---- (c) the infer CLI, bf16, npz then H5; (d) 3 f32 training steps
+        model = init_weights(build_model(MODEL_CFG), SEED)
+        ckpt = os.path.join(tmp, "model.pt")
+        save_checkpoint(ckpt, model, {"model": MODEL_CFG})
+        del model
+        with deterministic_cudnn(torch):
+            out["cli_bf16"] = h5_cli_runs(torch, kern, cli, ckpt, clips)
+            torch.cuda.empty_cache()
+            out["train_f32"] = h5_train_runs(torch, kern, tmp, small)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -3289,26 +3581,32 @@ def main() -> int:
     for line in ptxas_summary(build_log):
         log(f"  {line}")
     build.load_library()
+    seconds = {"1-2": round(time.perf_counter() - T0, 1)}
 
-    results = phase_kernels(torch, kern)
-    launches, routes, f32_launches = phase_engine(torch, kern)
+    def timed(phase, fn, *args):
+        """fn(*args), its seconds kept under ``phase`` for the closing line."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()  # room for the next phase (and phase 7's ranks)
+        return out
+
+    results = timed("3", phase_kernels, torch, kern)
+    launches, routes, f32_launches = timed("4", phase_engine, torch, kern)
     for name, n in f32_launches.items():
         results[name]["f32_route"]["launches"] = n
-    phase_cli(torch, kern)
-    single = phase_train(torch, kern)
+    timed("5", phase_cli, torch, kern)
+    single = timed("6", phase_train, torch, kern)
     train_launches = single["train_launches"]
-    torch.cuda.empty_cache()  # room for the ranks' processes
-    dp_launches = phase_data_parallel(torch, kern, single)
-    torch.cuda.empty_cache()
-    adv_launches = phase_adversarial(torch, kern, single)
-    torch.cuda.empty_cache()
-    gen_launches = phase_generate(torch, kern)
-    torch.cuda.empty_cache()
-    serving = phase_serving_options(torch, kern)
-    torch.cuda.empty_cache()
-    band, spatial = phase_spatial(torch, kern)
-    torch.cuda.empty_cache()
-    real = phase_real_recording(torch, kern)
+    dp_launches = timed("7", phase_data_parallel, torch, kern, single)
+    adv_launches = timed("8", phase_adversarial, torch, kern, single)
+    gen_launches = timed("9", phase_generate, torch, kern)
+    serving = timed("10", phase_serving_options, torch, kern)
+    band, spatial = timed("11", phase_spatial, torch, kern)
+    real = timed("12", phase_real_recording, torch, kern)
+    h5 = timed("13", phase_h5_clips, torch, kern)
+    log(f"seconds by phase {json.dumps(seconds)}; whole script "
+        f"{time.perf_counter() - T0:.1f} s of the watchdog's {WATCHDOG_S}")
     sp_launches = {label: r["ranks"][0] for label, r in spatial.items()}  # rank 0's, per run
     kernels = []
     for name, r in results.items():
@@ -3328,6 +3626,7 @@ def main() -> int:
             "launches_spatial": {label: n[KERNEL_COUNTER[name]]
                                  for label, n in sp_launches.items()},
             "launches_real": {precision: n[name] for precision, n in real.items()},
+            "launches_h5": {run: n[name] for run, n in h5.items()},
         })
     b = band["float32"]
     kernels.append({
@@ -3341,6 +3640,7 @@ def main() -> int:
         "whole_image_max_abs_diff": b["whole_image_max_abs_diff"], "bfloat16": band["bfloat16"],
         "launches_spatial": {label: n["fac_band"] for label, n in sp_launches.items()},
         "launches_real": {precision: n["B1_fac_band"] for precision, n in real.items()},
+        "launches_h5": {run: n["B1_fac_band"] for run, n in h5.items()},
     })
     faulthandler.cancel_dump_traceback_later()
     print(identity, flush=True)

@@ -1,6 +1,14 @@
-"""Clip datasets over the ``ebfi_clip_npz/1`` container (port of
-``ebfi_tpu/data/h5dataset.py``): windowing, on-the-fly blur synthesis,
-event encoding and seeded augmentation.
+"""Clip datasets over schema H5 clips and the ``ebfi_clip_npz/1``
+container (port of ``ebfi_tpu/data/h5dataset.py`` and
+``h5dataset_fast.py``): windowing, on-the-fly blur synthesis, event
+encoding and seeded augmentation.  A dataset tells the formats apart by
+the file's first bytes (the HDF5 signature), not by its suffix.
+
+A schema H5 clip (the JAX package's and the reference's interchange
+format, written by ``H5Packager``, ``write_clip_h5`` or the reference's
+generator) is read by the port's own HDF5 reader (:mod:`.hdf5`, no
+``h5py``): :func:`open_h5_clip` gives it the container's keys, as lazy
+views over the file.
 
 The container is one uncompressed ``.npz`` per clip, written by
 ``tools/h5_to_npz.py`` from a schema H5 clip or by
@@ -20,7 +28,9 @@ Arrays are memory-mapped from the file (the members are stored, not
 compressed), so a dataset reads only the frames and events a window needs,
 as the H5 readers do.  Items are bit-identical to ``H5ClipDataset.get``,
 ``H5ClipDatasetFast.get`` and ``H5ClipDatasetReal.get`` of the JAX package
-on the H5 the clip came from.  Frames stored at another resolution than
+on the same H5 clip, or on the H5 an npz clip came from; the classes carry
+those names too (:data:`H5ClipDataset`, :data:`H5ClipDatasetFast`,
+:data:`H5ClipDatasetReal`).  Frames stored at another resolution than
 the GT one (``scale``/``ori_scale``) are resized as the JAX readers resize
 them with cv2, by :func:`~ebfi_tpu_torch.data.resize.resize_cubic`.
 
@@ -38,6 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .. import native
+from . import hdf5
 from .resize import resize_cubic
 
 FORMAT = "ebfi_clip_npz/1"
@@ -75,6 +86,74 @@ def open_clip(path: str) -> Dict[str, np.ndarray]:
     if fmt != FORMAT:
         raise ValueError(f"{path}: not an {FORMAT} clip (format {fmt!r})")
     return out
+
+
+class _H5Frames:
+    """``images`` of an H5 clip: (N, H, W, 3), one ``image{i:09d}`` dataset
+    read per index."""
+
+    def __init__(self, images: "hdf5.Group", n: int):
+        self._images = images
+        first = images[f"image{0:09d}"]
+        self.shape, self.dtype = (n,) + first.shape, first.dtype
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __getitem__(self, i) -> np.ndarray:
+        i = int(i)
+        if not 0 <= i < self.shape[0]:
+            raise IndexError(f"frame {i} of a clip of {self.shape[0]} frames")
+        return self._images[f"image{i:09d}"][:]
+
+
+class _H5Column:
+    """One attribute of every image of an H5 clip, by image index (read
+    when indexed, as the value the file stores)."""
+
+    def __init__(self, images: "hdf5.Group", n: int, name: str):
+        self._images, self._n, self._name = images, n, name
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i):
+        return self._images[f"image{int(i):09d}"].attrs[self._name]
+
+
+def open_h5_clip(path: str) -> Dict[str, object]:
+    """A schema H5 clip under :func:`open_clip`'s keys: ``images`` (N, H, W,
+    3) and the per-image columns ``image_ts`` (``timestamp``),
+    ``{p}_event_idx`` and, where the first image has them,
+    ``exposure_begin_t`` / ``exposure_end_t``, all read lazily; the event
+    datasets ``{p}_xs``, ``{p}_ys``, ``{p}_ts``, ``{p}_ps`` (sliceable);
+    ``sensor_resolution`` from the file's attribute.  N counts the members
+    of ``ori_images``, as the JAX reader does."""
+    f = hdf5.File(path)
+    images = f["ori_images"]
+    n = len(images)
+    out: Dict[str, object] = {
+        "sensor_resolution": np.asarray(f.attrs["sensor_resolution"]),
+        "images": _H5Frames(images, n),
+        "image_ts": _H5Column(images, n, "timestamp"),
+    }
+    for group in f.keys():
+        if group.endswith("_events"):
+            p = group[: -len("_events")]
+            for a in ("xs", "ys", "ts", "ps"):
+                out[f"{p}_{a}"] = f[f"{group}/{a}"]
+            out[f"{p}_event_idx"] = _H5Column(images, n, f"{p}_event_idx")
+    first = images[f"image{0:09d}"].attrs
+    for a in ("exposure_begin_t", "exposure_end_t"):
+        if a in first:
+            out[a] = _H5Column(images, n, a)
+    f.close()  # reopened by the first read: a dataset built holds no handle
+    return out
+
+
+def open_any_clip(path: str) -> Dict[str, object]:
+    """A clip in either format, told apart by the HDF5 signature."""
+    return open_h5_clip(path) if hdf5.is_hdf5(path) else open_clip(path)
 
 
 # ----------------------------------------------------------------------- #
@@ -281,7 +360,7 @@ class _ClipReader:
     def __init__(self, path: str, config: dict):
         self.config = config
         self.path = path
-        self.clip = open_clip(path)
+        self.clip = open_any_clip(path)
         self.sensor_resolution = tuple(self.clip["sensor_resolution"][:2])
         self.spec = ScaleSpec.resolve(self.sensor_resolution, config["scale"], config["ori_scale"])
         self.time_bins = config["time_bins"]
@@ -362,9 +441,12 @@ class NpzClipDataset(_ClipReader):
         """Blur synthesis: the uint8 mean in f64, cast to f32, then divided
         by 255 in f32 (the reference's op order); on the native plane where
         the frames are stored at the GT resolution, as the JAX reader
-        gates its own."""
+        gates its own.  An H5 clip hands over only the window's frames."""
         images = self.clip["images"]
         if images.shape[1:3] == tuple(self.spec.gt_resolution):
+            if isinstance(images, _H5Frames):
+                return native.blurry_mean(np.stack([images[i] for i in indices]),
+                                          range(len(indices)))
             return native.blurry_mean(images, indices)
         return self._frames(indices).mean(0).astype(np.float32) / np.float32(255.0)
 
@@ -511,3 +593,9 @@ class NpzClipDatasetReal(_ClipReader):
             "exposure": np.stack(duties),      # (L, NumP, 1)
         }
         return self._augment(item, {"blurry": "frame", "events": "event"}, seed)
+
+
+# the JAX package's names: each class reads both formats
+H5ClipDataset = NpzClipDataset
+H5ClipDatasetFast = NpzClipDatasetFast
+H5ClipDatasetReal = NpzClipDatasetReal

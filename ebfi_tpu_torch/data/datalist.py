@@ -1,9 +1,12 @@
 """Datalists: the text files of clip paths the loaders read (port of
 ``ebfi_tpu/data/datalist.py``).
 
-:func:`build_datalist` samples train and valid lists of the ``.npz`` clips
-in a directory, in the JAX package's four modes and with its draws (the
-same seed picks the same names):
+:func:`build_datalist` samples train and valid lists of the clips in a
+directory, in the JAX package's four modes and with its draws (the same
+seed picks the same names).  Clips are ``*.npz``, ``*.h5`` and ``*.hdf5``
+files (the JAX package lists ``*.h5``), one per file stem: where
+``tools/h5_to_npz.py`` wrote a clip's ``.npz`` beside its ``.h5``, the
+memory-mapped ``.npz`` is listed.  The modes:
 
 - 0: ``num`` training clips from ``data_path``;
 - 1: ``num`` train and ``valid_num`` valid clips, disjoint, from ``data_path``;
@@ -30,8 +33,15 @@ def write_txt(path: str, items: List[str]) -> None:
         f.write("\n".join(items) + "\n")
 
 
+CLIP_SUFFIXES = (".npz", ".h5", ".hdf5")  # the one listed first where a stem has several
+
+
 def _clips(directory: str) -> List[str]:
-    return sorted(glob.glob(os.path.join(directory, "*.npz")))
+    chosen = {}
+    for ext in CLIP_SUFFIXES:
+        for p in glob.glob(os.path.join(directory, "*" + ext)):
+            chosen.setdefault(os.path.splitext(p)[0], p)
+    return sorted(chosen.values())
 
 
 def build_datalist(

@@ -1,6 +1,10 @@
 """Loader over concatenated clip datasets (port of
 ``ebfi_tpu/data/dataloader.py``; the trainer does the device prefetch).
 
+A datalist may mix schema H5 clips and ``.npz`` clips: each dataset tells
+its clip's format from the file's first bytes, in this process and in the
+workers alike.
+
 Items are assembled by a thread pool in the calling process or, with
 ``num_workers > 0``, by worker processes started with ``spawn`` (the
 parent may hold a CUDA context, which must not be forked).  Either way
@@ -28,8 +32,9 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from .clip_dataset import NpzClipDataset, NpzClipDatasetFast, NpzClipDatasetReal
+from .clip_dataset import H5ClipDataset, H5ClipDatasetFast, H5ClipDatasetReal
 from .datalist import read_datalist
+from .hdf5 import is_hdf5
 
 
 FETCH_THREADS = 2  # item threads of the in-process path
@@ -39,14 +44,26 @@ _PP_DATASETS: Optional[list] = None
 
 
 def _dataset_class(real_data: bool, fast: bool):
+    """The dataset class; each reads H5 and npz clips alike."""
     if real_data:
-        return NpzClipDatasetReal
-    return NpzClipDatasetFast if fast else NpzClipDataset
+        return H5ClipDatasetReal
+    return H5ClipDatasetFast if fast else H5ClipDataset
 
 
 def _pp_init(paths, config, real_data, fast):
     global _PP_DATASETS
     _PP_DATASETS = [_dataset_class(real_data, fast)(p, config) for p in paths]
+
+
+def is_clip(path: str) -> bool:
+    """Whether ``path`` is a clip (an HDF5 file, a user block allowed, or a
+    zip, i.e. an ``.npz``) rather than a datalist."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(4)
+    except OSError:
+        return False
+    return head == b"PK\x03\x04" or is_hdf5(path)
 
 
 def _pp_fetch(di: int, ii: int, seed: int) -> Dict[str, np.ndarray]:
@@ -61,8 +78,9 @@ class EBFIDataLoader:
     """Epoch loader over clip datasets.
 
     Args:
-      sources: datalist txt path, a single .npz path, or a list of .npz paths.
-      dataset_config: per-dataset config dict (see NpzClipDataset).
+      sources: datalist txt path, a single clip path (schema H5 or .npz), or
+        a list of clip paths, the formats mixed as they come.
+      dataset_config: per-dataset config dict (see H5ClipDataset).
       batch_size, shuffle, drop_last: usual semantics.
       shard_index/num_shards: this process's shard of every epoch (see
         the module docstring).
@@ -71,7 +89,7 @@ class EBFIDataLoader:
       num_threads: item threads of this process (when num_workers is 0).
       num_workers: worker processes (spawned) when > 0.
       fast: preload every item of a synthetic-blur clip
-        (:class:`NpzClipDatasetFast`).  As in the JAX loader, the datasets
+        (:class:`H5ClipDatasetFast`).  As in the JAX loader, the datasets
         of this process preload only where num_workers is 0 (with workers
         they serve only the index), and each worker preloads its own.
     """
@@ -83,7 +101,7 @@ class EBFIDataLoader:
         if not 0 <= shard_index < num_shards:
             raise ValueError(f"shard_index {shard_index} is not in [0, {num_shards})")
         if isinstance(sources, str):
-            paths = [sources] if sources.endswith(".npz") else read_datalist(sources)
+            paths = [sources] if is_clip(sources) else read_datalist(sources)
         else:
             paths = list(sources)
         cls = _dataset_class(real_data, fast and num_workers == 0)

@@ -1,11 +1,13 @@
-"""Synthetic clips: frames and ESIM-style events in the
-``ebfi_clip_npz/1`` container (port of ``ebfi_tpu/data/synth.py``).
+"""Synthetic clips: frames and ESIM-style events, as schema H5 clips or in
+the ``ebfi_clip_npz/1`` container (port of ``ebfi_tpu/data/synth.py``).
 
 Renders a moving scene, simulates threshold-crossing events from
-log-intensity changes, and writes the container that
-:mod:`ebfi_tpu_torch.data.clip_dataset` reads.  :func:`write_clip_npz` writes
-the same arrays as ``tools/h5_to_npz.py`` does from the JAX package's
-``write_clip_h5`` with the same arguments, without an H5 file in between.
+log-intensity changes, and writes a clip that
+:mod:`ebfi_tpu_torch.data.clip_dataset` reads.  :func:`write_clip_h5` writes
+what the JAX package's ``write_clip_h5`` writes with the same arguments
+(through the port's own HDF5 writer); :func:`write_clip_npz` writes the
+same arrays as ``tools/h5_to_npz.py`` does from that H5, without an H5
+file in between.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from .clip_dataset import FORMAT
+from .hdf5_write import Writer
 
 
 def render_frames(
@@ -134,6 +137,31 @@ def simulate_events(
     return (xs, ys, ts, ps), frame_idx
 
 
+def _synthesize(num_frames, H, W, fps, seed, real_exposure, down_scales):
+    """(frames, timestamps, {prefix: ((xs, ys, ts, ps), frame_idx)},
+    exposure end times or None): what both writers store."""
+    frames = render_frames(num_frames, H, W, seed)
+    timestamps = np.arange(num_frames, dtype=np.float64) / fps
+    groups = {"ori": simulate_events(frames, timestamps, seed=seed)}
+    for s in down_scales:
+        if H % s or W % s:
+            raise ValueError(f"H={H}, W={W} not divisible by down scale {s}")
+        small = (
+            frames.reshape(num_frames, H // s, s, W // s, s, 3)
+            .mean((2, 4))
+            .round()
+            .astype(np.uint8)
+        )
+        groups[f"down{s}"] = simulate_events(small, timestamps, seed=seed + s)
+    end = None
+    if real_exposure is not None:
+        duty, jitter = real_exposure
+        rng = np.random.default_rng(seed + 7)
+        eff = duty * (1 + rng.uniform(-jitter, jitter, num_frames))
+        end = timestamps + eff * (1.0 / fps)
+    return frames, timestamps, groups, end
+
+
 def write_clip_npz(
     path: str,
     num_frames: int = 64,
@@ -152,20 +180,8 @@ def write_clip_npz(
     (2, 4)) adds event groups simulated on block-mean-downsampled frames;
     H and W must be divisible by each scale.
     """
-    frames = render_frames(num_frames, H, W, seed)
-    timestamps = np.arange(num_frames, dtype=np.float64) / fps
-    groups = {"ori": simulate_events(frames, timestamps, seed=seed)}
-    for s in down_scales:
-        if H % s or W % s:
-            raise ValueError(f"H={H}, W={W} not divisible by down scale {s}")
-        small = (
-            frames.reshape(num_frames, H // s, s, W // s, s, 3)
-            .mean((2, 4))
-            .round()
-            .astype(np.uint8)
-        )
-        groups[f"down{s}"] = simulate_events(small, timestamps, seed=seed + s)
-
+    frames, timestamps, groups, end = _synthesize(num_frames, H, W, fps, seed, real_exposure,
+                                                  down_scales)
     arrays = {
         "format": np.array(FORMAT),
         "sensor_resolution": np.array([H, W], np.int64),
@@ -178,11 +194,49 @@ def write_clip_npz(
         arrays[f"{p}_ts"] = ts.astype(np.float64)
         arrays[f"{p}_ps"] = ps.astype(np.int8)
         arrays[f"{p}_event_idx"] = frame_idx.astype(np.int64)
-    if real_exposure is not None:
-        duty, jitter = real_exposure
-        rng = np.random.default_rng(seed + 7)
-        eff = duty * (1 + rng.uniform(-jitter, jitter, num_frames))
+    if end is not None:
         arrays["exposure_begin_t"] = timestamps
-        arrays["exposure_end_t"] = timestamps + eff * (1.0 / fps)
+        arrays["exposure_end_t"] = end
     np.savez(path, **arrays)
+    return len(groups["ori"][0][0])
+
+
+def write_clip_h5(
+    path: str,
+    num_frames: int = 64,
+    H: int = 64,
+    W: int = 80,
+    fps: float = 240.0,
+    seed: int = 0,
+    real_exposure: Optional[Tuple[float, float]] = None,
+    down_scales: Tuple[int, ...] = (),
+) -> int:
+    """:func:`write_clip_npz`'s clip as a schema H5 clip, as the JAX
+    package's ``write_clip_h5`` writes it (contiguous datasets): file
+    attributes ``sensor_resolution``, ``num_events``, ``num_imgs``; groups
+    ``{p}_events/{xs,ys,ts,ps}``; ``ori_images/image{n:09d}`` (BGR) with
+    ``timestamp``, ``{p}_event_idx`` and, for ``real_exposure``,
+    ``exposure_begin_t`` / ``exposure_end_t``.  Returns its number of
+    ``ori`` events."""
+    frames, timestamps, groups, end = _synthesize(num_frames, H, W, fps, seed, real_exposure,
+                                                  down_scales)
+    with Writer(path) as f:
+        f.attrs["sensor_resolution"] = np.array([H, W], np.int64)
+        f.attrs["num_events"] = len(groups["ori"][0][0])
+        f.attrs["num_imgs"] = num_frames
+        for p, ((xs, ys, ts, ps), _) in groups.items():
+            g = f.create_group(f"{p}_events")
+            g.create_dataset("xs", data=xs.astype(np.int16))
+            g.create_dataset("ys", data=ys.astype(np.int16))
+            g.create_dataset("ts", data=ts.astype(np.float64))
+            g.create_dataset("ps", data=ps.astype(np.int8))
+        imgs = f.create_group("ori_images")
+        for n in range(num_frames):
+            d = imgs.create_dataset(f"image{n:09d}", data=frames[n, :, :, ::-1])  # store BGR
+            d.attrs["timestamp"] = timestamps[n]
+            for p, (_, frame_idx) in groups.items():
+                d.attrs[f"{p}_event_idx"] = int(frame_idx[n])
+            if end is not None:
+                d.attrs["exposure_begin_t"] = timestamps[n]
+                d.attrs["exposure_end_t"] = end[n]
     return len(groups["ori"][0][0])

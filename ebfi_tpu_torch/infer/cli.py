@@ -4,8 +4,12 @@ same output tree and result files.
     python -m ebfi_tpu_torch.infer --model_path CKPT --data_list LIST \
         --output_path OUT [flags of the JAX CLI] [--device cpu]
 
-Each line of the datalist names a clip in the ``ebfi_clip_npz/1`` container
-(``tools/h5_to_npz.py`` repacks schema H5 clips).  The checkpoint is a
+Each line of the datalist names a schema H5 clip (the reference's and the
+JAX package's files, read without ``h5py``) or a clip in the
+``ebfi_clip_npz/1`` container (``tools/h5_to_npz.py`` repacks H5 clips
+into it), mixed as they come; ``--real_blur`` reads the exposures from
+the H5 images' ``exposure_begin_t`` / ``exposure_end_t`` attributes.  The
+checkpoint is a
 port checkpoint (``tools/jax_ckpt_to_torch.py`` converts JAX ones) or a
 reference-format ``.pth``.  Per clip it writes
 
@@ -84,7 +88,9 @@ def default_dataloader_config() -> dict:
 def get_flags(argv=None):
     p = argparse.ArgumentParser(description="ebfi_tpu_torch inference")
     p.add_argument("--model_path", type=str, default=None)
-    p.add_argument("--data_list", type=str, default=None)
+    p.add_argument("--data_list", type=str, default=None,
+                   help="a text file naming one clip per line: schema H5 clips (read without "
+                        "h5py) or .npz clips, mixed as they come")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (the default; raises without a card) or 'cpu'")
     p.add_argument("--output_path", type=str, required=True)

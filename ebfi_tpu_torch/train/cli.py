@@ -5,7 +5,8 @@
     torchrun --standalone --nproc_per_node=N -m ebfi_tpu_torch.train \
         -c configs/train_evfi.yml -id RUN
 
-Config -> loaders (train, valid) -> model (factory, the JAX training
+Config -> loaders (train, valid; their datalists name schema H5 clips or
+``.npz`` clips, mixed as they come) -> model (factory, the JAX training
 init's distributions from the config's seed) -> optimizer (Adam + StepLR
 with the lr_min gate, gradient accumulation, FrozenEX) -> train and eval
 steps -> Trainer (iteration or epoch mode, early stop, checkpoints).  The

@@ -57,7 +57,9 @@ class ConfigParser:
         """CLI: -c/--config, -id/--runid, -r/--resume, --reset, --device,
         plus registered override flags with ';'-separated target paths."""
         p = argparse.ArgumentParser(description="ebfi_tpu_torch trainer")
-        p.add_argument("-c", "--config", required=True)
+        p.add_argument("-c", "--config", required=True,
+                       help="the YAML config; its datalists (path_to_datalist_txt) name "
+                            "schema H5 clips or .npz clips, one per line, mixed as they come")
         p.add_argument("-id", "--runid", default=None)
         p.add_argument("-r", "--resume", default=None)
         p.add_argument("--reset", action="store_true")
